@@ -1,0 +1,110 @@
+"""Reconstruction configuration (counterpart of `tron_tpu/config.py`).
+
+One frozen dataclass carries every knob of the reference CLI
+(`src/tron.cu:794-874`) that the port runs.  The TPU-only fields of the JAX
+config (`dft_dot`, the MXU DFT dot algorithm, and `tuning`, the VMEM /
+Mosaic / scan-blocking knobs of `KernelTuning`) have no counterpart here;
+`ReconConfig.from_jax_fields` drops them when a JAX config is carried over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+class AngleScheme:
+    """Spoke-angle conventions.
+
+    The reference uses *different* linear-angle conventions in its grid and
+    degrid kernels (grid: pe*2*pi/npe + pi/2 at `src/tron.cu:509`; degrid:
+    pe*pi/npe at `src/tron.cu:555`).  Here the scheme is explicit and the
+    same scheme is used for both directions.
+    """
+
+    GOLDEN = "golden"           # modang(PHI * (pe + skip)); PHI = pi/golden-ratio
+    LINEAR_HALF = "linear_half"  # pe * pi / npe           (reference degrid convention)
+    LINEAR_FULL = "linear_full"  # pe * 2*pi / npe + pi/2  (reference grid convention)
+
+
+# Golden angle increment in radians = pi / ((1+sqrt(5))/2) ~= 111.246 deg
+# (`src/tron.cu:90`).
+PHI = math.pi / ((1.0 + math.sqrt(5.0)) / 2.0)
+
+# Fields of the JAX config that only steer TPU code generation.
+_TPU_ONLY_FIELDS = ("dft_dot", "tuning")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReconConfig:
+    # Geometry / kernel (reference defaults at src/tron.cu:66-69)
+    gridos: float = 2.0          # -o grid oversampling factor
+    kernwidth: float = 2.0       # -k kernel half-width in oversampled grid units
+    beatty: bool = False         # -DBEATTY_BETA variant of the KB shape
+
+    # Trajectory
+    golden_angle: bool = False   # -G
+    skip_angles: int = 0         # -s
+    angle_scheme: str | None = None  # override; default derived per direction
+
+    # Sliding-window framing (src/tron.cu:904-935)
+    data_undersamp: float = 1.0  # -u
+    prof_slide: int = 0          # -d (0 -> npe1work, i.e. non-overlapping frames)
+
+    # Pipeline
+    adjoint: bool = False        # -a
+    deapodize: bool = True       # on by default (src/tron.cu:87)
+    sdc: str = "ramlak"          # "ramlak" (reference parity) | "ideal"
+    niter: int = 0               # -i CGNR iterations (0 = plain adjoint)
+    toeplitz: bool = False       # --toeplitz (CGNR normal operator as FFT conv)
+    koosh: bool = False          # -3 (3D stack handling)
+    incremental: bool = False    # telescoping sliding-window gridding: frame
+                                 # z+1's k-space grid = frame z's grid
+                                 # - (leaving spokes) + (entering spokes);
+                                 # golden-angle overlapping windows only
+    coil_combine: str = "sos"    # "sos" | "walsh" | "none"
+    walsh_npatch: int = 1
+    coil_compress: int = 0       # SVD-compress to N virtual coils (0 = off)
+
+    # Implementation knobs
+    backend: str = "auto"        # "jnp": plain torch gridder on any device;
+                                 # "pallas": the CUDA kernel (raises on a CPU
+                                 # tensor); "auto": the kernel for a CUDA
+                                 # tensor, the plain version for a CPU tensor
+    matmul_dtype: str = "bfloat16"   # precision class of the JAX gridder
+                                     # ("bfloat16" | "bf16x2" | "bf16x3" |
+                                     # "float32"); the CUDA kernel runs fp32
+                                     # FMA for every class
+    pe_chunk: int = 8            # spokes per step of the plain dense gridder
+
+    @classmethod
+    def from_jax_fields(cls, d: dict) -> "ReconConfig":
+        """Build the port's config from ``dataclasses.asdict()`` of a
+        ``tron_tpu.config.ReconConfig``.  TRON has no learned weights: its
+        state is this configuration plus the KB constants derived from it
+        (``kb_beta``), so this is the one place state crosses packages.  The
+        TPU-only keys are dropped; any other unknown key raises."""
+        return cls(**{k: v for k, v in d.items() if k not in _TPU_ONLY_FIELDS})
+
+    def scheme_for(self, direction: str) -> str:
+        """Angle scheme for 'forward' or 'adjoint', honoring the override."""
+        if self.golden_angle:
+            return AngleScheme.GOLDEN
+        if self.angle_scheme is not None:
+            return self.angle_scheme
+        return (
+            AngleScheme.LINEAR_FULL if direction == "adjoint" else AngleScheme.LINEAR_HALF
+        )
+
+    def npe1work(self, nro: int, npe1: int) -> int:
+        """Profiles per frame (`src/tron.cu:916-919`)."""
+        cap = int(nro * self.data_undersamp)
+        return npe1 if npe1 <= cap else cap
+
+    def frame_geometry(self, nro: int, npe1: int) -> tuple[int, int, int]:
+        """(npe1work, prof_slide, nz) for a sliding-window recon
+        (`src/tron.cu:916-928`)."""
+        work = self.npe1work(nro, npe1)
+        slide = self.prof_slide if self.prof_slide > 0 else work
+        nz = 1 + (npe1 - work) // slide
+        return work, slide, nz

@@ -1,0 +1,21 @@
+"""`.ra` I/O (counterpart of `tron_tpu/io/__init__.py`)."""
+
+from tron_tpu_torch.io.ra import (
+    RA_MAGIC,
+    RaHeader,
+    dtype_to_eltype,
+    eltype_to_dtype,
+    ra_query,
+    ra_read,
+    ra_write,
+)
+
+__all__ = [
+    "RA_MAGIC",
+    "RaHeader",
+    "dtype_to_eltype",
+    "eltype_to_dtype",
+    "ra_query",
+    "ra_read",
+    "ra_write",
+]

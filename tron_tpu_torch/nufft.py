@@ -1,0 +1,105 @@
+"""Adjoint NUFFT pipeline (counterpart of the adjoint half of
+`tron_tpu/nufft.py`):
+
+    precompensate -> grid -> centered unnormalized IFFT -> crop -> deapod
+
+(`src/tron.cu:623-637`).  Radial data is (..., npe, nro); images are
+(..., n, n) with n = nro // 2 and k-space grids (nxos, nxos), nxos =
+n * gridos.  The forward operator is still to port (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from tron_tpu_torch.config import ReconConfig
+from tron_tpu_torch.kernels.kb import kb_beta
+from tron_tpu_torch.ops import grid_cuda
+from tron_tpu_torch.ops.fftops import centered_ifft2_unnormalized, crop_center, deapodize
+from tron_tpu_torch.ops.grid import grid_radial2d
+from tron_tpu_torch.trajectory import ideal_sdc, ramlak_sdc
+
+
+def sdc_weights(cfg: ReconConfig, nro: int, npe: int, device=None) -> torch.Tensor:
+    """Density-compensation weights per cfg.sdc."""
+    if cfg.sdc == "ideal":
+        return ideal_sdc(nro, npe, device)
+    return ramlak_sdc(nro, npe, device)
+
+
+def _kernel_backend(cfg: ReconConfig, device: torch.device) -> bool:
+    """True when gridding goes through the kernel wrappers of grid_cuda
+    (which take the plain version for a CPU tensor); raises for
+    backend="pallas" on a tensor that is not on the card."""
+    if cfg.backend == "jnp":
+        return False
+    if cfg.backend == "pallas" and device.type != "cuda":
+        raise ValueError(f"backend='pallas' needs a CUDA tensor, got one on {device}")
+    if cfg.backend not in ("pallas", "auto"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    return True
+
+
+def _grid_backend(cfg: ReconConfig, device: torch.device):
+    if _kernel_backend(cfg, device):
+        return functools.partial(
+            grid_cuda.grid_radial2d, matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk
+        )
+    return functools.partial(grid_radial2d, pe_chunk=cfg.pe_chunk)
+
+
+def nufft_adjoint(
+    data: torch.Tensor,
+    angles: torch.Tensor,
+    cfg: ReconConfig,
+    apply_sdc: bool = True,
+) -> torch.Tensor:
+    """Radial samples (..., npe, nro) complex -> coil images (..., n, n)."""
+    npe, nro = data.shape[-2:]
+    n = nro // 2
+    nxos = int(n * cfg.gridos)
+    beta = kb_beta(cfg.kernwidth, cfg.gridos, cfg.beatty)
+
+    if apply_sdc:
+        data = data * sdc_weights(cfg, nro, npe, data.device).to(data.dtype)
+    # flatten batch dims onto one channel axis (the kernel is 3-D)
+    batch = data.shape[:-2]
+    flat = data.reshape((-1,) + tuple(data.shape[-2:]))
+    kgrid = _grid_backend(cfg, data.device)(flat, angles, nxos, cfg.kernwidth, beta)
+    kgrid = kgrid.reshape(tuple(batch) + (nxos, nxos))
+    return _adjoint_epilogue(kgrid, n, cfg, beta)
+
+
+def _adjoint_epilogue(kgrid: torch.Tensor, n: int, cfg: ReconConfig, beta: float):
+    """Centered unnormalized IFFT + crop + deapod."""
+    nxos = kgrid.shape[-1]
+    img = centered_ifft2_unnormalized(kgrid)
+    img = crop_center(img, n)
+    if cfg.deapodize:
+        img = deapodize(img, nxos, cfg.kernwidth, beta)
+    return img
+
+
+def planes_path_ok(cfg: ReconConfig) -> bool:
+    """True when the hoisted sample-plane path applies: the kernel backends.
+    A gather has no tiling constraint, so every CUDA tensor qualifies; a CPU
+    tensor runs the same path with the kernel's plain version."""
+    return cfg.backend in ("pallas", "auto")
+
+
+def nufft_adjoint_planes(
+    planes: torch.Tensor, angles: torch.Tensor, cfg: ReconConfig
+) -> torch.Tensor:
+    """Adjoint recon from pre-transformed sample planes (npe, nR, 2C) f32
+    (see ops.grid_cuda.to_sample_planes; SDC, radius map and mask applied
+    upstream, once per acquisition).  Returns coil images (C, n, n)."""
+    _kernel_backend(cfg, planes.device)
+    nxos = planes.shape[-2]
+    n = int(round(nxos / cfg.gridos))
+    beta = kb_beta(cfg.kernwidth, cfg.gridos, cfg.beatty)
+    kgrid = grid_cuda.grid_radial2d_planes(
+        planes, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype
+    )
+    return _adjoint_epilogue(kgrid, n, cfg, beta)

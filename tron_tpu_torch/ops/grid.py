@@ -1,0 +1,115 @@
+"""Adjoint radial gridding as a dense separable contraction (counterpart of
+`tron_tpu/ops/grid.py`).
+
+For every oversampled grid point (X, Y) and every spoke t, the reference
+sums the spoke's samples at integer radii r within kernel width of the
+point (`src/tron.cu:465-536`):
+
+    grid[Y, X] = 1/(nxos*npe) * sum_pe sum_r KB(r*cos t - X) KB(r*sin t - Y)
+                                             * data[pe, ridx(r)]
+
+Per spoke the weight factorizes, so a chunk of spokes is one matrix product
+(U = s * B)^T @ A.  This is the plain version of the CUDA gridding kernel
+(`ops/grid_cuda.py`): its CPU twin and its oracle on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tron_tpu_torch.kernels.kb import kb_kernel
+
+
+def _radius_map(nxos: int, nro: int, device=None):
+    """Integer grid radii handled by the gridder and their readout indices.
+
+    rr spans [-nxos/2+1, nxos/2-1] (the reference clamps the band to
+    nxos/2-1, `src/tron.cu:501`); ridx = trunc(rr*nro/nxos) + nro/2 with
+    C truncation semantics (`src/tron.cu:517`).
+    """
+    rr = torch.arange(nxos, dtype=torch.int32, device=device) - nxos // 2
+    ridx = torch.trunc(rr.to(torch.float32) * (nro / nxos)).to(torch.int64) + nro // 2
+    valid = (rr > -(nxos // 2)) & (ridx >= 0) & (ridx < nro)
+    return rr.to(torch.float32), torch.clamp(ridx, 0, nro - 1), valid
+
+
+def _grid_dense(
+    s: torch.Tensor,
+    rr: torch.Tensor,
+    angles: torch.Tensor,
+    nxos: int,
+    kernwidth: float,
+    beta: float,
+    pe_chunk: int,
+) -> torch.Tensor:
+    """Real sample planes s (npe, nR, K) at radii rr (nR,) -> (K, nxos, nxos)
+    f32 grids, scaled by 1/(nxos*npe)."""
+    npe, nR, K = s.shape
+    X = (torch.arange(nxos, device=s.device) - nxos // 2).to(torch.float32)
+    ct = torch.cos(angles.to(torch.float32))
+    st = torch.sin(angles.to(torch.float32))
+    acc = s.new_zeros((K, nxos, nxos))
+    for p0 in range(0, npe, pe_chunk):
+        sl = slice(p0, min(p0 + pe_chunk, npe))
+        kx = rr[None, :, None] * ct[sl, None, None]            # (P, nR, 1)
+        ky = rr[None, :, None] * st[sl, None, None]
+        A = kb_kernel(kx - X, kernwidth, beta)                  # (P, nR, nx)
+        B = kb_kernel(ky - X, kernwidth, beta)                  # (P, nR, ny)
+        U = s[sl].permute(2, 0, 1)[..., None] * B               # (K, P, nR, ny)
+        acc += U.reshape(K, -1, nxos).transpose(1, 2) @ A.reshape(-1, nxos)
+    return acc * (1.0 / (nxos * npe))
+
+
+def grid_radial2d(
+    data: torch.Tensor,
+    angles: torch.Tensor,
+    nxos: int,
+    kernwidth: float,
+    beta: float,
+    pe_chunk: int = 4,
+    raw_rows: bool = False,
+) -> torch.Tensor:
+    """data: (..., npe, nro) complex radial samples (already density-
+    compensated); angles: (npe,).  Returns (..., nxos, nxos) complex centered
+    k-space grids, scaled by 1/(nxos*npe) like the reference
+    (`src/tron.cu:532`).
+
+    ``raw_rows=True`` grids each readout at its exact radius
+    ((ro - nro/2) * nxos/nro) instead of the trunc-resample onto integer
+    grid radii (identical to the default path when nro == nxos)."""
+    *batch, npe, nro = data.shape
+    if raw_rows:
+        rr = (torch.arange(nro, dtype=torch.float32, device=data.device) - nro // 2) * (
+            nxos / nro
+        )
+        ds = data
+    else:
+        rr, ridx, valid = _radius_map(nxos, nro, data.device)
+        ds = torch.index_select(data, -1, ridx) * valid.to(data.dtype)
+    nR = rr.shape[0]
+    nb = ds[..., 0, 0].numel()
+    # complex channels -> interleaved real planes (npe, nR, 2*nb)
+    s = torch.view_as_real(ds.reshape(nb, npe, nR)).permute(1, 2, 0, 3)
+    s = s.reshape(npe, nR, 2 * nb)
+    g = _grid_dense(s, rr, angles, nxos, kernwidth, beta, pe_chunk)
+    g = g.reshape(nb, 2, nxos, nxos).permute(0, 2, 3, 1).contiguous()
+    return torch.view_as_complex(g).reshape(tuple(batch) + (nxos, nxos))
+
+
+def grid_radial2d_planes_plain(
+    planes: torch.Tensor,
+    angles: torch.Tensor,
+    nxos: int,
+    kernwidth: float,
+    beta: float,
+    pe_chunk: int = 8,
+) -> torch.Tensor:
+    """Planes form: (npe, nxos, 2C) f32 sample planes (see
+    ``grid_cuda.to_sample_planes``; channel 2c is coil c's real part, 2c+1
+    its imaginary part) -> (C, nxos, nxos) complex64, scaled by
+    1/(nxos*npe).  Row 0 (radius -nxos/2) is never gridded."""
+    npe, nR, K = planes.shape
+    rr = (torch.arange(nR, device=planes.device) - nxos // 2).to(torch.float32)
+    g = _grid_dense(planes[:, 1:], rr[1:], angles, nxos, kernwidth, beta, pe_chunk)
+    g = g.reshape(K // 2, 2, nxos, nxos).permute(0, 2, 3, 1).contiguous()
+    return torch.view_as_complex(g)
