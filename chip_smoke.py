@@ -13,6 +13,18 @@ Phases, one line each (any failure raises and exits non-zero):
   5 golden   the committed JAX-computed golden images
   6 cli      tron-torch -a -G -u 0.4 -d 21 on a .ra fixture
   7 timing   throughput (CUDA events) and kernel vs plain ms per frame
+  8 degrid   the CUDA degridding kernel vs its plain torch version (wrap and
+             clip; nxos 64-640, 1-10 coils, gridos 1.5/2/2.5, an odd nro)
+  9 exact    the gridding kernel's exact lattice vs the plain raw-rows gridder
+ 10 dot      dot test of the kernel pair at gridos 1.5, 2, 2.5
+ 11 forward  forward recon_radial2d at full width (32 frames of 6-coil 256^2,
+             -G -u 1: 512 spokes of 512 readouts), with launch counts
+ 12 cgnr     -a -G -u 0.4 -d 21 -i 10 on the whole-body series, with launch
+             counts, vs plain-operator CGNR; --toeplitz on 8 frames
+ 13 solver   6-coil birdcage Shepp-Logan 256^2: CGNR beats the adjoint and
+             its data residual falls
+ 14 cli2     tron-torch forward and -i 4 on .ra fixtures
+ 15 timing2  degrid kernel vs plain ms, forward Msamples/s, CGNR ms per frame
 Then the kernel table as one JSON line, the nvidia-smi line, and the result
 line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -22,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -34,6 +47,11 @@ SEED = 0
 NC, NRO, SLIDE, NZ = 6, 512, 21, 956  # whole-body class (bench.py:168-174)
 KERNEL_TOL = 1e-5                     # kernel vs plain, NRMSE (fp32 sums in two orders)
 INC_TOL = 1e-4                        # incremental vs direct worst frame (bench.py:266)
+CG_TOL = 1e-4                         # CGNR, kernels vs plain operators (tests/test_torch_solver.py)
+DOT_TOL = 1e-4                        # pair dot test (tests/test_grid_pallas.py:419)
+NITER = 10                            # CGNR iterations of the main path (-i 10)
+NF = 32                               # forward frames
+CG_WALL = 120.0                       # s; above it the CGNR path takes the first 128 frames
 
 
 def log(phase: str, msg: str) -> None:
@@ -89,7 +107,20 @@ def main() -> int:
     # -- 2 build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.load()
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
+    # one line per kernel instantiation: name<channel block[, row lattice]>,
+    # from ptxas's "Compiling entry function", spill and register lines
+    ptxas, name, spill = [], None, ""
+    for ln in built.log.splitlines():
+        m = re.search(r"((?:de)?grid_radial2d_kernel)ILi(\d+)E(?:Lb([01])E)?", ln)
+        if "Compiling entry function" in ln and m:
+            lattice = "" if m.group(3) is None else (", lattice" if m.group(3) == "1" else ", integer")
+            name = f"{m.group(1)}<{m.group(2)}{lattice}>"
+        elif name and "spill stores" in ln:
+            spill = ln.strip()
+        elif name and "registers" in ln:
+            regs = re.search(r"Used \d+ registers", ln)
+            ptxas.append(f"{name}: {regs.group(0) if regs else ln.strip()}; {spill}")
+            name, spill = None, ""
     how = f"nvcc {' '.join(_build.NVCC_FLAGS)}" if built.log else "reused, same sources"
     log("build", f"{built.path.relative_to(ROOT)} from tron_tpu_torch/csrc/ "
         f"({how}) in {time.perf_counter() - t0:.2f} s")
@@ -249,17 +280,253 @@ def main() -> int:
         f"(plain,kernel,kernel,plain: {[round(1e3 * t, 4) for t in t_plain[:1] + t_kern + t_plain[1:]]}) "
         f"on {card}")
 
+    log("timing", f"whole-body gridding kernel {kern_ms:.4f} ms per frame; PERF.md records "
+        "0.711 ms for it on the same card class before the exact lattice was added")
+
+    # -- 8 degrid kernel vs plain ---------------------------------------------
+    from tron_tpu_torch.ops import degrid_cuda
+    from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_plain
+
+    def cgrid(*shape):
+        a = rng.standard_normal(shape, dtype=np.float32) + 1j * rng.standard_normal(
+            shape, dtype=np.float32)
+        return torch.from_numpy(a.astype(np.complex64)).to(dev)
+
+    dcases = [  # name, nxos, coils, spokes, nro, gridos
+        ("nxos64 C1", 64, 1, 8, 64, 2.0),
+        ("nxos128 C2", 128, 2, 12, 128, 2.0),
+        ("nxos256 C6", 256, 6, 48, 256, 2.0),
+        ("nxos512 C6 npe204", 512, 6, 204, 512, 2.0),
+        ("nxos128 C10 (2 channel blocks)", 128, 10, 30, 128, 2.0),
+        ("gridos1.5 nxos384 nro512 C2", 384, 2, 24, 512, 1.5),
+        ("gridos2.5 nxos640 nro512 C2", 640, 2, 24, 512, 2.5),
+        ("odd nro255 nxos256 C2", 256, 2, 12, 255, 2.0),
+    ]
+    derr512 = None
+    for name, n, C, npe, nro, gos in dcases:
+        b = kb_beta(kw, gos)
+        g = cgrid(C, n, n)
+        ang = spoke_angles(npe, "golden", 19000, device=dev)
+        for wrap in (True, False):
+            got = degrid_cuda.degrid_radial2d(g, ang, nro, kw, b, wrap=wrap)
+            want = degrid_plain(g, ang, nro, kw, b, wrap=wrap)
+            torch.cuda.synchronize()
+            e = nrmse(got, want)
+            mae = float((got - want).abs().max())
+            log("degrid", f"{name} {'wrap' if wrap else 'clip'}: nrmse {e:.3e} "
+                f"max_abs_err {mae:.3e} (tol {KERNEL_TOL})")
+            require(e <= KERNEL_TOL, f"degrid vs plain {name} wrap={wrap}: nrmse {e:.3e}")
+            if name == "nxos512 C6 npe204" and not wrap:
+                derr512 = mae
+                again = degrid_cuda.degrid_radial2d(g, ang, nro, kw, b, wrap=wrap)
+                require(torch.equal(got, again), "repeat degrid run is not bitwise equal")
+                log("degrid", "nxos512 C6 npe204 clip: repeat run bitwise equal")
+
+    # -- 9 exact lattice -----------------------------------------------------
+    for gos in (1.5, 2.0, 2.5):
+        nxos = int(256 * gos)
+        b = kb_beta(kw, gos)
+        d = cgrid(2, 48, 512)
+        ang = spoke_angles(48, "golden", 7, device=dev)
+        got = grid_cuda.grid_radial2d_exact(d, ang, nxos, kw, b)
+        d0 = d.clone()
+        d0[..., 0] = 0  # readout 0 is never gridded; the dense oracle would grid it
+        e = nrmse(got, grid_dense(d0, ang, nxos, kw, b, raw_rows=True))
+        log("exact", f"gridos {gos} (nro 512, nxos {nxos}, C2, npe48) kernel vs plain raw rows: "
+            f"nrmse {e:.3e} (tol {KERNEL_TOL})")
+        require(e <= KERNEL_TOL, f"exact lattice gridos {gos}: nrmse {e:.3e}")
+        if gos == 2.0:
+            e = nrmse(got, grid_cuda.grid_radial2d(d, ang, nxos, kw, b))
+            log("exact", f"gridos 2 row lattice vs integer radii: nrmse {e:.3e} (tol 1e-6)")
+            require(e <= 1e-6, f"row lattice vs integer path {e:.3e}")
+
+    # -- 10 dot test of the kernel pair -----------------------------------------
+    for gos in (1.5, 2.0, 2.5):
+        nxos = int(256 * gos)
+        b = kb_beta(kw, gos)
+        npe = 24
+        x = cgrid(2, nxos, nxos)
+        y = cgrid(2, npe, 512)
+        y[..., 0] = 0
+        ang = spoke_angles(npe, "golden", 2, device=dev)
+        Ax = degrid_cuda.degrid_radial2d(x, ang, 512, kw, b, wrap=False)
+        if nxos == 512:
+            AHy = grid_cuda.grid_radial2d(y, ang, nxos, kw, b)
+        else:
+            AHy = grid_cuda.grid_radial2d_exact(y, ang, nxos, kw, b)
+        AHy = AHy * (nxos * npe)  # undo the gridder's 1/(nxos*npe)
+        lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+        rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+        rel = abs(lhs - rhs) / abs(rhs)
+        log("dot", f"gridos {gos}: |<y,Ax> - <A^H y,x>| / |<A^H y,x>| = {rel:.3e} (tol {DOT_TOL})")
+        require(rel < DOT_TOL, f"dot test gridos {gos}: {rel:.3e}")
+
+    # -- 11 forward main path ------------------------------------------------
+    from tron_tpu_torch.nufft import nufft_adjoint, nufft_forward
+
+    n_img = NRO // 2
+    fimgs = (rng.standard_normal((NC, 1, n_img, n_img, NF), dtype=np.float32)
+             + 1j * rng.standard_normal((NC, 1, n_img, n_img, NF), dtype=np.float32)
+             ).astype(np.complex64)
+    fcfg = ReconConfig(golden_angle=True, data_undersamp=1.0)
+    grid_cuda.LAUNCHES = 0
+    degrid_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    fout = recon_radial2d(fimgs, fcfg, device=dev)
+    wall = time.perf_counter() - t0
+    fwd_launches = degrid_cuda.LAUNCHES
+    log("forward", f"recon_radial2d -G -u 1 on ({NC}, 1, {n_img}, {n_img}, {NF}): out "
+        f"{fout.shape} {fout.dtype}, degrid launches {fwd_launches}, grid launches "
+        f"{grid_cuda.LAUNCHES}, host wall {wall:.3f} s (incl. transfers)")
+    require(fout.shape == (NF, NC, 1, NRO, NRO), f"forward shape {fout.shape}")
+    require(bool(np.isfinite(fout).all()), "forward output not finite")
+    require(fwd_launches == NF and grid_cuda.LAUNCHES == 0,
+            f"forward: {fwd_launches} degrid launches, expected {NF}")
+    fd = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(fimgs, (4, 0, 1, 3, 2)).reshape(NF, NC, n_img, n_img))).to(dev)
+    fang = spoke_angles(NRO, "golden", 0, device=dev)
+    plain0 = nufft_forward(fd[0], fang, dataclasses.replace(fcfg, backend="jnp"), nro=NRO)
+    e = nrmse(fout[0].reshape(NC, NRO, NRO), plain0.cpu())
+    log("forward", f"frame 0 kernel forward vs plain forward on the card: nrmse {e:.3e} "
+        f"(tol {KERNEL_TOL})")
+    require(e <= KERNEL_TOL, f"forward frame 0 vs plain {e:.3e}")
+
+    # -- 12 CGNR main path ---------------------------------------------------
+    ccfg = dataclasses.replace(cfg, niter=NITER)
+    probe = np.ascontiguousarray(indata[..., : work + 7 * SLIDE])
+    t0 = time.perf_counter()
+    recon_radial2d(probe, ccfg, device=dev)
+    per_frame = (time.perf_counter() - t0) / 8
+    nzc = NZ if per_frame * NZ <= CG_WALL else 128
+    why = ("the whole series" if nzc == NZ else
+           f"the first 128 frames: the series would take {per_frame * NZ:.0f} s > {CG_WALL:.0f} s")
+    log("cgnr", f"8-frame probe {per_frame * 1e3:.1f} ms per frame; running {why}")
+    cin = indata if nzc == NZ else np.ascontiguousarray(indata[..., : work + (nzc - 1) * SLIDE])
+    grid_cuda.LAUNCHES = 0
+    degrid_cuda.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cout = recon_radial2d(cin, ccfg, device=dev)
+    wall = time.perf_counter() - t0
+    cg_grid, cg_degrid = grid_cuda.LAUNCHES, degrid_cuda.LAUNCHES
+    log("cgnr", f"recon_radial2d -a -G -u 0.4 -d {SLIDE} -i {NITER}: out {cout.shape}, grid "
+        f"launches {cg_grid} ({cg_grid / nzc:g} per frame), degrid launches {cg_degrid} "
+        f"({cg_degrid / nzc:g} per frame), host wall {wall:.2f} s (incl. transfers)")
+    require(cout.shape == (nzc, 1, n_img, n_img), f"cgnr shape {cout.shape}")
+    require(bool(np.isfinite(cout).all()), "cgnr output not finite")
+    require(cg_grid == nzc * (NITER + 1) and cg_degrid == nzc * NITER,
+            f"cgnr launches grid {cg_grid} degrid {cg_degrid}, expected "
+            f"{nzc * (NITER + 1)} and {nzc * NITER}")
+    d2 = torch.from_numpy(np.ascontiguousarray(host[:, : work + SLIDE])).to(dev)
+    plain2 = recon_frames(d2, dataclasses.replace(ccfg, backend="jnp"), work, SLIDE, 2)
+    for z in range(2):
+        e = nrmse(cout[z, 0], plain2[z].cpu())
+        log("cgnr", f"frame {z} kernel CGNR vs plain-operator CGNR (pair) on the card: "
+            f"nrmse {e:.3e} (tol {CG_TOL})")
+        require(e <= CG_TOL, f"cgnr frame {z} vs plain {e:.3e}")
+    tcfg = dataclasses.replace(ccfg, toeplitz=True)
+    grid_cuda.LAUNCHES = 0
+    degrid_cuda.LAUNCHES = 0
+    tout = recon_radial2d(probe, tcfg, device=dev)
+    log("cgnr", f"--toeplitz on 8 frames: out {tout.shape}, grid launches "
+        f"{grid_cuda.LAUNCHES}, degrid launches {degrid_cuda.LAUNCHES}; vs pair-mode CGNR "
+        f"frames 0-7: nrmse {nrmse(tout[:, 0], cout[:8, 0]):.3e} (NUFFT-level, not a bound)")
+    require(tout.shape == (8, 1, n_img, n_img), f"toeplitz shape {tout.shape}")
+    require(bool(np.isfinite(tout).all()), "toeplitz output not finite")
+    require(grid_cuda.LAUNCHES == 16 and degrid_cuda.LAUNCHES == 0,
+            "toeplitz: expected 2 grid launches (kernel, right side) per frame, no degrid")
+
+    # -- 13 solver sanity on the phantom -------------------------------------
+    from tron_tpu_torch.metrics import lmse
+    from tron_tpu_torch.phantom import birdcage_sensitivities, shepp_logan
+    from tron_tpu_torch.solver import cgnr_radial2d
+
+    ph = birdcage_sensitivities(n_img, NC) * shepp_logan(n_img)[None]
+    pimg = torch.from_numpy(ph).to(dev)
+    scfg = ReconConfig(golden_angle=True)
+    sang = spoke_angles(work, "golden", 0, device=dev)
+    pdata = nufft_forward(pimg, sang, scfg)
+    e_adj = lmse(nufft_adjoint(pdata, sang, scfg).cpu().numpy(), ph)
+    prev = np.inf
+    for it in (1, 4, 12):
+        xcg = cgnr_radial2d(pdata, sang, scfg, niter=it)
+        resid = float(torch.linalg.vector_norm(nufft_forward(xcg, sang, scfg) - pdata))
+        e_cg = lmse(xcg.cpu().numpy(), ph)
+        log("solver", f"6-coil birdcage Shepp-Logan {n_img}^2, {work} spokes: -i {it} data "
+            f"residual {resid:.4e}, lmse {e_cg:.4e} (adjoint {e_adj:.4e})")
+        require(resid < prev * 1.01, f"residual rose at -i {it}")
+        prev = resid
+    require(e_cg < e_adj, f"CGNR lmse {e_cg:.4e} does not beat the adjoint's {e_adj:.4e}")
+
+    # -- 14 cli, forward and CGNR --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fimg, fdat = os.path.join(tmp, "img.ra"), os.path.join(tmp, "data.ra")
+        ra_write(np.ascontiguousarray(fimgs[:, :, :64, :64, :2]), fimg)
+        rc = cli.main(["-G", "-g", "0", fimg, fdat])
+        require(rc == 0, f"cli forward exit {rc}")
+        res = ra_read(fdat)
+        log("cli2", f"tron-torch -G on ({NC}, 1, 64, 64, 2): out dims {res.shape}")
+        require(res.shape == (NC, 1, 128, 128, 2), f"cli forward dims {res.shape}")
+        require(bool(np.isfinite(res).all()), "cli forward output not finite")
+        fin, fout2 = os.path.join(tmp, "in.ra"), os.path.join(tmp, "cg.ra")
+        ra_write(np.ascontiguousarray(indata[..., : work + 3 * SLIDE])[..., None], fin)
+        rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "-i", "4", "-g", "0", fin, fout2])
+        require(rc == 0, f"cli -i 4 exit {rc}")
+        res = ra_read(fout2)
+        log("cli2", f"tron-torch -a -G -u 0.4 -d {SLIDE} -i 4 on ({NC}, 1, {NRO}, {work + 3 * SLIDE}, 1): "
+            f"out dims {res.shape}")
+        require(res.shape == (1, 1, n_img, n_img, 4), f"cli -i dims {res.shape}")
+        require(bool(np.isfinite(res).all()), "cli -i output not finite")
+
+    # -- 15 timing: degrid, forward, CGNR ------------------------------------
+    kg = cgrid(NC, NRO, NRO)
+    dang = spoke_angles(work, "golden", 19000, device=dev)
+    dkern = lambda: degrid_cuda.degrid_radial2d(kg, dang, NRO, kw, beta, wrap=False)  # noqa: E731
+    dplain = lambda: degrid_plain(kg, dang, NRO, kw, beta, wrap=False)  # noqa: E731
+    td_plain = [timed(dplain, 5)]
+    td_kern = [timed(dkern, 50), timed(dkern, 50)]
+    td_plain.append(timed(dplain, 5))
+    dkern_ms = 1e3 * sum(td_kern) / 2
+    dplain_ms = 1e3 * sum(td_plain) / 2
+    log("timing2", f"degridding one CGNR frame ({NC}x{NRO}x{NRO} -> {NC}x{work}x{NRO}, clip): kernel "
+        f"{dkern_ms:.4f} ms, plain {dplain_ms:.4f} ms (plain,kernel,kernel,plain: "
+        f"{[round(1e3 * t, 4) for t in td_plain[:1] + td_kern + td_plain[1:]]}) on {card}")
+
+    def forward_all():
+        for z in range(NF):
+            nufft_forward(fd[z], fang, fcfg, nro=NRO)
+
+    s = timed(forward_all, 3)
+    log("timing2", f"forward: {NF} frames in {s:.4f} s = {NF * NC * NRO * NRO / s / 1e6:.1f} "
+        f"Msamples/s (nz*nc*npe1*nro / s) on {card}")
+    nzt = min(32, NZ)
+    dcg = dfull[:, : work + (nzt - 1) * SLIDE]
+    s = timed(lambda: recon_frames(dcg, ccfg, work, SLIDE, nzt), 1)
+    log("timing2", f"CGNR -i {NITER}: {1e3 * s / nzt:.3f} ms per frame ({nzt} frames, host "
+        f"stop test each iteration) on {card}")
+
     require("jax" not in sys.modules, "JAX was imported")
-    print(json.dumps({"kernels": [{
-        "name": "grid_radial2d",
-        "route": "cuda",
-        "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
-        "replaces": "tron_tpu/ops/grid_pallas.py:933",
-        "launches": launches,
-        "max_abs_err": err512,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "grid_radial2d",
+            "route": "cuda",
+            "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
+            "replaces": "tron_tpu/ops/grid_pallas.py:933",
+            "launches": launches + cg_grid,
+            "max_abs_err": err512,
+            "ms": kern_ms,
+            "plain_ms": plain_ms,
+        },
+        {
+            "name": "degrid_radial2d",
+            "route": "cuda",
+            "source": "tron_tpu_torch/csrc/degrid_radial2d.cu",
+            "replaces": "tron_tpu/ops/degrid_pallas.py:44",
+            "launches": fwd_launches + cg_degrid,
+            "max_abs_err": derr512,
+            "ms": dkern_ms,
+            "plain_ms": dplain_ms,
+        },
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,4 +1,5 @@
-"""The port's CUDA gridding kernel vs its plain torch version, on the card.
+"""The port's CUDA gridding and degridding kernels vs their plain torch
+versions, on the card.
 
 Every test here is marked `gpu` and skips without a CUDA device: the kernel
 has no CPU mode.  The file imports nothing of JAX or of tests/conftest.py,
@@ -12,7 +13,8 @@ import pytest
 import torch
 
 from tron_tpu_torch.kernels.kb import kb_beta
-from tron_tpu_torch.ops import grid_cuda
+from tron_tpu_torch.ops import degrid_cuda, grid_cuda
+from tron_tpu_torch.ops.degrid import degrid_radial2d
 from tron_tpu_torch.ops.grid import grid_radial2d, grid_radial2d_planes_plain
 from tron_tpu_torch.trajectory import spoke_angles
 
@@ -26,7 +28,7 @@ TOL = 1e-5  # NRMSE: the same fp32 terms summed in two orders
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the gridding kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     # the plain version is the fp32 oracle: no TF32 in its matrix products
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
@@ -76,3 +78,85 @@ def test_wrapper_raises_on_bad_input(dev):
         grid_cuda.grid_radial2d_planes(
             torch.zeros((4, 64, 2), device=dev), torch.zeros(4), 64, KW, BETA
         )
+
+
+def _complex(rng, shape, dev):
+    a = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.from_numpy(a.astype(np.complex64)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize(
+    "n,C,npe,nro",
+    [(64, 1, 8, 64), (128, 2, 12, 128), (256, 2, 48, 256), (512, 6, 204, 512),
+     (128, 10, 30, 128), (192, 2, 20, 256), (320, 2, 20, 256), (128, 2, 12, 127)],
+)
+def test_degrid_kernel_matches_plain(dev, wrap, n, C, npe, nro):
+    rng = np.random.default_rng(n + C + nro)
+    g = _complex(rng, (C, n, n), dev)
+    ang = spoke_angles(npe, "golden", 19000, device=dev)
+    launches = degrid_cuda.LAUNCHES
+    got = degrid_cuda.degrid_radial2d(g, ang, nro, KW, BETA, wrap=wrap)
+    again = degrid_cuda.degrid_radial2d(g, ang, nro, KW, BETA, wrap=wrap)
+    want = degrid_radial2d(g, ang, nro, KW, BETA, wrap=wrap)
+    torch.cuda.synchronize()
+    assert degrid_cuda.LAUNCHES == launches + 2
+    assert got.shape == (C, npe, nro) and got.dtype == torch.complex64
+    assert _nrmse(got, want) <= TOL
+    assert torch.equal(got, again)  # one owner per sample, no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gridos", [1.5, 2.0, 2.5])
+def test_exact_lattice_matches_plain(dev, gridos):
+    nro, npe = 256, 24
+    nxos = int((nro // 2) * gridos)
+    beta = kb_beta(KW, gridos)
+    rng = np.random.default_rng(int(10 * gridos))
+    d = _complex(rng, (2, npe, nro), dev)
+    ang = spoke_angles(npe, "golden", 7, device=dev)
+    got = grid_cuda.grid_radial2d_exact(d, ang, nxos, KW, beta)
+    d0 = d.clone()
+    d0[..., 0] = 0  # readout 0 is never gridded; the dense oracle would grid it
+    want = grid_radial2d(d0, ang, nxos, KW, beta, raw_rows=True)
+    assert _nrmse(got, want) <= TOL
+    if gridos == 2.0:
+        # the identity radius map: the row lattice equals the integer radii
+        assert _nrmse(got, grid_cuda.grid_radial2d(d, ang, nxos, KW, beta)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gridos", [1.5, 2.0, 2.5])
+def test_kernel_pair_dot_test(dev, gridos):
+    """<y, A x> = <A^H y, x> for the clip-mode degridding kernel and the
+    gridding kernel (tests/test_grid_pallas.py:394-419)."""
+    nro, npe = 256, 9
+    nxos = int((nro // 2) * gridos)
+    beta = kb_beta(KW, gridos)
+    rng = np.random.default_rng(3)
+    x = _complex(rng, (1, nxos, nxos), dev)
+    y = _complex(rng, (1, npe, nro), dev)
+    y[..., 0] = 0
+    ang = spoke_angles(npe, "golden", 2, device=dev)
+    Ax = degrid_cuda.degrid_radial2d(x, ang, nro, KW, beta, wrap=False)
+    if nro == nxos:
+        AHy = grid_cuda.grid_radial2d(y, ang, nxos, KW, beta)
+    else:
+        AHy = grid_cuda.grid_radial2d_exact(y, ang, nxos, KW, beta)
+    AHy = AHy * (nxos * npe)
+    lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+    rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+    assert abs(lhs - rhs) / abs(rhs) < 1e-4
+
+
+@pytest.mark.gpu
+def test_degrid_wrapper_raises_on_bad_input(dev):
+    g = torch.zeros((1, 64, 64), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError):
+        degrid_cuda.degrid_radial2d(g, torch.zeros(4), 64, KW, BETA)  # angles on the CPU
+    with pytest.raises(ValueError):
+        degrid_cuda.degrid_radial2d(g.to(torch.complex128), torch.zeros(4, device=dev), 64,
+                                    KW, BETA)
+    with pytest.raises(ValueError):
+        degrid_cuda.degrid_radial2d(g, torch.zeros(4, device=dev), 64, 4.0, BETA)

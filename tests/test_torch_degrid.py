@@ -1,0 +1,217 @@
+"""The port's forward degridding (tron_tpu_torch.ops.degrid, .degrid_cuda)
+and forward / exact-lattice NUFFT vs the JAX package on the CPU.
+
+The plain gather and the dense form are held to JAX's twins; the kernel
+wrapper's CPU route to the Pallas kernel `_degrid_kernel` itself, run in
+interpret mode as the JAX package's own tests run it.  Inputs are numpy
+arrays from seeds, handed to both packages.  The CUDA kernel has no CPU
+mode: its tests are in tests/test_torch_cuda.py.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.conftest import nrmse
+from tron_tpu import nufft as jnufft
+from tron_tpu.config import ReconConfig as JaxConfig
+from tron_tpu.ops import degrid as jdegrid
+from tron_tpu.ops import degrid_pallas as jdegrid_pallas
+from tron_tpu.trajectory import spoke_angles as jangles
+from tron_tpu_torch import nufft
+from tron_tpu_torch.config import ReconConfig
+from tron_tpu_torch.kernels.kb import kb_beta
+from tron_tpu_torch.ops import degrid, degrid_cuda, grid_cuda
+
+torch.set_num_threads(1)
+
+KW = 2.0
+BETA = kb_beta(KW, 2.0)
+
+
+def _grid(seed, C, n) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((C, n, n)) + 1j * rng.standard_normal((C, n, n))).astype(
+        np.complex64
+    )
+
+
+def _angles(npe, skip):
+    return np.asarray(jangles(npe, "golden", skip))
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))  # a writable copy
+
+
+def test_lattice_radii_match_jax_formula():
+    for nro, n in [(128, 128), (96, 72), (75, 64)]:
+        want = np.asarray((jnp.arange(nro, dtype=jnp.float32) / nro - 0.5) * n)
+        np.testing.assert_array_equal(degrid.lattice_radii(nro, n).numpy(), want)
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("n,nro,kw", [(64, 64, 2.0), (48, 64, 2.0), (64, 63, 1.5), (32, 32, 3.0)])
+def test_plain_gather_matches_jax(wrap, n, nro, kw):
+    g = _grid(n + nro, 2, n)
+    ang = _angles(9, 19990)
+    beta = kb_beta(kw, 2.0)
+    want = np.asarray(
+        jdegrid.degrid_radial2d(
+            jnp.asarray(g), jnp.asarray(ang), nro, kw, beta, backend="gather", wrap=wrap
+        )
+    )
+    got = degrid.degrid_radial2d(_t(g), _t(ang), nro, kw, beta, wrap=wrap)
+    assert got.dtype == torch.complex64 and got.shape == (2, 9, nro)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    one = degrid.degrid_radial2d(_t(g[0]), _t(ang), nro, kw, beta, wrap=wrap)
+    np.testing.assert_array_equal(one.numpy(), got[0].numpy())
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_dense_matches_jax(wrap):
+    n, nro = 48, 64
+    g = _grid(7, 2, n)
+    ang = _angles(11, 3)
+    want = np.asarray(
+        jdegrid._degrid_dense(jnp.asarray(g), jnp.asarray(ang), nro, KW, BETA, pe_chunk=4, wrap=wrap)
+    )
+    got = degrid._degrid_dense(_t(g), _t(ang), nro, KW, BETA, pe_chunk=4, wrap=wrap)
+    assert got.shape == (2, 11, nro)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    # the dense form is the gather's contract
+    gather = degrid.degrid_radial2d(_t(g), _t(ang), nro, KW, BETA, wrap=wrap)
+    assert nrmse(got.numpy(), gather.numpy()) <= 1e-5
+
+
+def _interior_mask(nro, kw=2):
+    """tests/test_degrid_pallas.py:21-23: the Pallas kernel clips where the
+    gather wraps, so only readouts clear of the grid edge compare."""
+    ro = np.arange(nro)
+    return (np.abs(ro - nro // 2) <= nro // 2 - kw - 2) & (ro != 0)
+
+
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bf16x3"])
+def test_wrapper_matches_pallas_degrid_kernel(matmul_dtype):
+    """The wrapper's CPU route vs `_degrid_kernel` in interpret mode at the
+    JAX test's size and bound (tests/test_degrid_pallas.py:26-44)."""
+    C, npe, n = 2, 12, 256
+    g = _grid(21, C, n)
+    ang = _angles(npe, 7)
+    want = np.asarray(
+        jdegrid_pallas.degrid_radial2d_pallas(
+            jnp.asarray(g), jnp.asarray(ang), n, KW, BETA, pe_chunk=4,
+            matmul_dtype=matmul_dtype, interpret=True,
+        )
+    )
+    launches = degrid_cuda.LAUNCHES
+    got = degrid_cuda.degrid_radial2d(_t(g), _t(ang), n, KW, BETA, matmul_dtype=matmul_dtype)
+    assert degrid_cuda.LAUNCHES == launches  # a CPU tensor never reaches the kernel
+    assert got.dtype == torch.complex64 and got.shape == (C, npe, n)
+    m = _interior_mask(n)
+    assert nrmse(got.numpy()[..., m], want[..., m]) < 2e-4
+    clip = degrid_cuda.degrid_radial2d(_t(g), _t(ang), n, KW, BETA, wrap=False)
+    assert nrmse(clip.numpy()[..., m], got.numpy()[..., m]) == 0.0
+
+
+def _cfgs(gridos, **kw):
+    jcfg = JaxConfig(golden_angle=True, gridos=gridos, **kw)
+    return jcfg, ReconConfig.from_jax_fields(dataclasses.asdict(jcfg))
+
+
+@pytest.mark.parametrize("backend", ["auto", "jnp"])
+@pytest.mark.parametrize("gridos,wrap", [(2.0, True), (2.0, False), (1.5, True), (2.5, False)])
+def test_nufft_forward_matches_jax(backend, gridos, wrap):
+    n, npe = 32, 10
+    jcfg, cfg = _cfgs(gridos)
+    cfg = dataclasses.replace(cfg, backend=backend)
+    img = _grid(3, 2, n)
+    ang = _angles(npe, 40)
+    want = np.asarray(
+        jnufft.nufft_forward(jnp.asarray(img), jnp.asarray(ang), jcfg, nro=2 * n, wrap=wrap)
+    )
+    got = nufft.nufft_forward(_t(img), _t(ang), cfg, nro=2 * n, wrap=wrap)
+    assert got.shape == (2, npe, 2 * n)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    dflt = nufft.nufft_forward(_t(img), _t(ang), cfg)
+    assert dflt.shape == (2, npe, int(n * gridos))
+
+
+@pytest.mark.parametrize("backend", ["auto", "jnp"])
+@pytest.mark.parametrize("gridos", [1.5, 2.5])
+def test_nufft_adjoint_exact_matches_jax(backend, gridos):
+    nro, npe = 64, 12
+    jcfg, cfg = _cfgs(gridos)
+    cfg = dataclasses.replace(cfg, backend=backend)
+    d = _grid(5, 2, nro)[:, :npe]                      # (2, npe, nro) samples
+    ang = _angles(npe, 9)
+    want = np.asarray(jnufft.nufft_adjoint_exact(jnp.asarray(d), jnp.asarray(ang), jcfg))
+    got = nufft.nufft_adjoint_exact(_t(d), _t(ang), cfg)
+    assert got.shape == (2, nro // 2, nro // 2)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    # readout 0 is never gridded
+    d0 = d.copy()
+    d0[..., 0] = 1e3
+    np.testing.assert_array_equal(nufft.nufft_adjoint_exact(_t(d0), _t(ang), cfg).numpy(),
+                                  got.numpy())
+
+
+@pytest.mark.parametrize("gridos", [1.5, 2.0, 2.5])
+def test_plain_pair_dot_test(gridos):
+    """<y, A x> = <A^H y, x> for the plain clip-mode degrid and the plain
+    gridder on the shared lattice (tests/test_grid_pallas.py:394-419),
+    integer radii at gridos 2 as the CGNR pair takes them."""
+    nro, npe = 64, 7
+    nxos = int((nro // 2) * gridos)
+    beta = kb_beta(KW, gridos)
+    x = _t(_grid(8, 1, nxos))
+    rng = np.random.default_rng(9)
+    y = _t((rng.standard_normal((1, npe, nro)) + 1j * rng.standard_normal((1, npe, nro)))
+           .astype(np.complex64))
+    y[..., 0] = 0  # readout 0 is never gridded
+    ang = _t(_angles(npe, 2))
+    Ax = degrid_cuda.degrid_radial2d(x, ang, nro, KW, beta, wrap=False)
+    if nro == nxos:
+        AHy = grid_cuda.grid_radial2d(y, ang, nxos, KW, beta)
+    else:
+        AHy = grid_cuda.grid_radial2d_exact(y, ang, nxos, KW, beta)
+    AHy = AHy * (nxos * npe)  # undo the gridder's reference 1/(nxos*npe) scale
+    lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+    rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+    assert abs(lhs - rhs) / abs(rhs) < 1e-4
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    g = torch.zeros((1, 16, 16), dtype=torch.complex64)
+    ang = torch.zeros(4)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        degrid_cuda.degrid_radial2d(g, ang, 16, KW, BETA, matmul_dtype="fp8")
+    with pytest.raises(ValueError, match="complex64"):
+        degrid_cuda._check(g.to(torch.complex128), ang, 16, KW)
+    with pytest.raises(ValueError, match="square"):
+        degrid_cuda._check(torch.zeros((1, 16, 8), dtype=torch.complex64), ang, 16, KW)
+    with pytest.raises(ValueError, match="angles"):
+        degrid_cuda._check(g, ang.double(), 16, KW)
+    with pytest.raises(ValueError, match="kernwidth"):
+        degrid_cuda._check(g, ang, 16, 4.0)
+    with pytest.raises(ValueError, match="nro"):
+        degrid_cuda._check(g, ang, 0, KW)
+    planes = torch.zeros((4, 16, 2))
+    with pytest.raises(ValueError, match="nR >= 2"):
+        grid_cuda._check_planes(torch.zeros((4, 1, 2)), ang, 16, exact=True)
+    grid_cuda._check_planes(planes, ang, 99, exact=True)  # any row count
+
+
+def test_kernel_backend_on_cpu_tensor_raises():
+    _, cfg = _cfgs(2.0)
+    img = _t(_grid(1, 1, 16))
+    ang = _t(_angles(4, 0))
+    launches = degrid_cuda.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        nufft.nufft_forward(img, ang, dataclasses.replace(cfg, backend="pallas"))
+    with pytest.raises(ValueError, match="CUDA"):
+        nufft.nufft_adjoint_exact(img, ang, dataclasses.replace(cfg, backend="pallas"))
+    assert degrid_cuda.LAUNCHES == launches

@@ -1,15 +1,24 @@
 """tron_tpu_torch: the PyTorch/CUDA port of tron_tpu (the JAX/TPU package
 beside it, which stays the reference).
 
-The golden-angle sliding-window adjoint recon runs here, with adjoint
-gridding in a hand-written CUDA kernel (`csrc/grid_radial2d.cu`) and the
-rest in plain torch.  Module names follow tron_tpu's, so each module's
-counterpart is the file of the same name there.  This package imports
-torch and never JAX.
+The golden-angle sliding-window adjoint recon, the forward operator and the
+CGNR solver run here, with adjoint gridding and forward degridding in
+hand-written CUDA kernels (`csrc/grid_radial2d.cu`, `csrc/degrid_radial2d.cu`)
+and the rest in plain torch.  Module names follow tron_tpu's, so each
+module's counterpart is the file of the same name there.  This package
+imports torch and never JAX.
 """
 
 from tron_tpu_torch.config import AngleScheme, ReconConfig
-from tron_tpu_torch.nufft import nufft_adjoint
+from tron_tpu_torch.nufft import nufft_adjoint, nufft_forward
 from tron_tpu_torch.recon import recon_radial2d
+from tron_tpu_torch.solver import cgnr_radial2d
 
-__all__ = ["AngleScheme", "ReconConfig", "nufft_adjoint", "recon_radial2d"]
+__all__ = [
+    "AngleScheme",
+    "ReconConfig",
+    "cgnr_radial2d",
+    "nufft_adjoint",
+    "nufft_forward",
+    "recon_radial2d",
+]

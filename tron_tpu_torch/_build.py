@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (`csrc/*.cu`).
+"""Build and load the hand-written CUDA kernels (`csrc/*.cu`, with the
+shared device code of `csrc/*.cuh`).
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface, loaded with ctypes:
@@ -9,7 +10,8 @@ interface, loaded with ctypes:
 The build runs on first use, when a CUDA tensor first reaches a kernel
 wrapper, so importing the package never needs nvcc.  The library lands in
 `build/tron_tpu_torch/` beside the package, keyed by a hash of the sources
-and flags, and a later process with the same sources reuses it.
+(headers included) and flags, and a later process with the same sources
+reuses it.
 """
 
 from __future__ import annotations
@@ -58,9 +60,13 @@ def _nvcc() -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.tron_grid_radial2d_planes.argtypes = [
-        vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp,
     ]
     lib.tron_grid_radial2d_planes.restype = ci
+    lib.tron_degrid_radial2d_planes.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, vp,
+    ]
+    lib.tron_degrid_radial2d_planes.restype = ci
     lib.tron_cuda_error_string.argtypes = [ci]
     lib.tron_cuda_error_string.restype = ctypes.c_char_p
 
@@ -70,7 +76,7 @@ def load() -> Built:
     """Compile (unless a library for these exact sources exists) and load."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(sources + list(CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libtron_torch_{h.hexdigest()[:16]}.so"

@@ -1,14 +1,17 @@
 """Command-line interface of the port, `tron-torch` (counterpart of
-`tron_tpu/cli.py`), flag-compatible with `tron` for the adjoint recon:
+`tron_tpu/cli.py`), flag-compatible with `tron` for the 2-D recon:
 
-    tron-torch -a [-G] [-u f] [-d slide] [-s skip] [-k w] [-o os] [-g gpu] [-v]
-               [--sdc ramlak|ideal] [--combine sos|none] [--half] [--incremental]
-               in.ra [out.ra]
+    tron-torch [-a] [-G] [-u f] [-d slide] [-s skip] [-k w] [-o os] [-i n]
+               [-g gpu] [-v] [--toeplitz] [--sdc ramlak|ideal]
+               [--combine sos|none] [--half] [--incremental] in.ra [out.ra]
 
-The adjoint input is a 5-D .ra (nc, nt, nro, npe1, npe2) and the output
-(1, nt, nx, ny, nz) with nx = nro/2, as with `tron`.  `-g` picks the CUDA
-device.  Flags of `tron` that the port does not run yet exit with status 2
-and `error: <flag> is not ported yet`.
+With `-a` the input is a 5-D .ra (nc, nt, nro, npe1, npe2) and the output
+(1, nt, nx, ny, nz) with nx = nro/2; `-i n` runs n CGNR iterations per
+frame (`--toeplitz` applies its normal operator as an FFT convolution).
+Without `-a` (forward) the input is an image stack (nc, nt, nx, ny, nz) and
+the output (nc, nt, nro, npe1, nz) with nro = gridos*nx and npe1 = u*nro,
+as with `tron`.  `-g` picks the CUDA device.  Flags of `tron` that the port
+does not run yet exit with status 2 and `error: <flag> is not ported yet`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tron-torch",
         description="Trajectory-optimized Non-uniform Fast Fourier Transform "
-        "(PyTorch/CUDA, adjoint recon)",
+        "(PyTorch/CUDA)",
     )
     # declared only to be refused: argparse would take a bare -3 for a
     # negative-number positional
@@ -37,6 +40,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-d", dest="prof_slide", type=int, default=0, help="profiles to slide between frames")
     p.add_argument("-g", dest="device", type=int, default=0, help="CUDA device index")
     p.add_argument("-G", dest="golden_angle", action="store_true", help="golden angle radial")
+    p.add_argument("-i", dest="niter", type=int, default=0, help="CGNR iterations")
     p.add_argument("-k", dest="kernwidth", type=float, default=2.0, help="gridding kernel width")
     p.add_argument("-o", dest="gridos", type=float, default=2.0, help="grid oversampling factor")
     p.add_argument("-s", dest="skip_angles", type=int, default=0, help="initial profiles to skip")
@@ -48,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="coil combination (walsh is not ported yet)")
     p.add_argument("--half", action="store_true",
                    help="write float16 output (.ra eltype float/2, re/im on a leading dim of 2)")
+    p.add_argument("--toeplitz", action="store_true",
+                   help="with -i: apply the CGNR normal operator as a "
+                   "Toeplitz-embedded FFT convolution (one PSF kernel per frame)")
     p.add_argument("--incremental", action="store_true",
                    help="telescoping sliding-window gridding (golden-angle "
                    "overlapping windows; other cases use the direct path)")
@@ -71,8 +78,6 @@ def main(argv=None) -> int:
     if unknown:
         print(f"error: unrecognized arguments: {' '.join(unknown)}", file=sys.stderr)
         return 2
-    if not args.adjoint:
-        return _not_ported("forward mode (no -a)")
     if args.combine == "walsh":
         return _not_ported("--combine walsh")
 
@@ -87,13 +92,16 @@ def main(argv=None) -> int:
         skip_angles=args.skip_angles,
         data_undersamp=args.data_undersamp,
         prof_slide=args.prof_slide,
-        adjoint=True,
+        adjoint=args.adjoint,
+        niter=args.niter,
+        toeplitz=args.toeplitz,
         incremental=args.incremental,
         sdc=args.sdc,
         coil_combine=args.combine,
     )
-    if args.incremental and not cfg.golden_angle:
-        print("note: --incremental ignored (non-golden-angle scheme uses the direct path)")
+    if args.incremental and (not cfg.golden_angle or cfg.niter > 0):
+        why = "CGNR (-i)" if cfg.niter > 0 else "non-golden-angle scheme"
+        print(f"note: --incremental ignored ({why} uses the direct path)")
 
     vprint(f"Reading {args.infile}")
     try:
@@ -119,10 +127,13 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     start = time.perf_counter()
-    out = recon_radial2d(indata, cfg, half_readback=args.half, device=device)
+    out = recon_radial2d(indata, cfg, half_readback=args.half and cfg.adjoint, device=device)
     vprint(f"Elapsed time: {time.perf_counter() - start:.2f} s")
 
-    if out.ndim == 5:
+    if not cfg.adjoint:
+        # out: (nz, nc, nt, npe1, nro) -> .ra dims (nc, nt, nro, npe1, npe2=nz)
+        arr = np.transpose(out, (1, 2, 4, 3, 0))
+    elif out.ndim == 5:
         # --combine none keeps the coil axis: (nz, nt, nc, ny, nx)
         # -> .ra dims (nc, nt, nx, ny, nz)
         arr = np.transpose(out, (2, 1, 4, 3, 0))

@@ -1,2 +1,2 @@
-"""Operators (counterpart of `tron_tpu/ops/`): gridding, FFT chain, coil
-combine."""
+"""Operators (counterpart of `tron_tpu/ops/`): gridding, degridding, FFT
+chain, coil combine."""

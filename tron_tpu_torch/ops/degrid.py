@@ -1,0 +1,136 @@
+"""Forward radial degridding (counterpart of `tron_tpu/ops/degrid.py`):
+sample a centered oversampled k-space grid at radial trajectory points with
+Kaiser-Bessel interpolation.
+
+Each sample owns its output (a pure gather, the race-freedom property of the
+reference, `src/tron.cu:540-577`), and the (int(2kw)+1)^2 neighbourhood is
+walked with static offset loops.  ``degrid_radial2d`` is the plain version
+of the CUDA degridding kernel (`ops/degrid_cuda.py`): its CPU twin and its
+oracle on the card.  ``_degrid_dense`` is the separable dense form.
+
+Conventions as in the JAX package: x = r cos t, y = r sin t, the grid
+centred at n//2, sample u of a spoke at radius (u/nro - 1/2) * n
+(`lattice_radii`, the one radius table of both kernels and both plain
+versions).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from tron_tpu_torch.kernels.kb import kb_kernel
+
+
+@functools.cache
+def _lattice_radii(nro: int, n: int, device: torch.device) -> torch.Tensor:
+    ro = torch.arange(nro, dtype=torch.float32)
+    return ((ro / nro - 0.5) * n).to(device)
+
+
+def lattice_radii(nro: int, n: int, device=None) -> torch.Tensor:
+    """Signed radius of each of nro readouts, in units of an n-point grid:
+    (u/nro - 1/2) * n in float32 (`src/tron.cu:554, 560-561`).  Read only:
+    the table is cached per geometry and device.
+
+    Computed on the CPU, where torch divides exactly as JAX does (a CUDA
+    division by a scalar multiplies by its reciprocal), then moved: the
+    degridding kernel, the gridding kernel's exact lattice and both plain
+    versions read this one table, so the operator pair shares its radii bit
+    for bit on every device."""
+    return _lattice_radii(nro, n, torch.device(device if device is not None else "cpu"))
+
+
+def _mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """x mod m in [0, m) for a float tensor, exact as ``jnp.mod`` (fmod and
+    a sign fix; ``torch.remainder`` divides and is not exact)."""
+    y = torch.fmod(x, m)
+    return torch.where(y < 0, y + m, y)
+
+
+def _positions(angles: torch.Tensor, nro: int, n: int):
+    """Continuous sample columns and rows (xs, ys), each (npe, nro)."""
+    kr = lattice_radii(nro, n, angles.device)
+    ct = torch.cos(angles).to(torch.float32)
+    st = torch.sin(angles).to(torch.float32)
+    xs = kr[None, :] * ct[:, None] + n // 2
+    ys = kr[None, :] * st[:, None] + n // 2
+    return xs, ys
+
+
+def degrid_radial2d(
+    kgrid: torch.Tensor,
+    angles: torch.Tensor,
+    nro: int,
+    kernwidth: float,
+    beta: float,
+    wrap: bool = True,
+) -> torch.Tensor:
+    """kgrid: (..., n, n) centered complex k-space; angles: (npe,).  Returns
+    samples (..., npe, nro).
+
+    ``wrap=True`` treats the grid as periodic (index mod n, the reference's
+    `src/tron.cu:569-570`); ``wrap=False`` clips KB footprints at the grid
+    edge, which makes degrid the exact transpose of the gridding op (which
+    clips), as the CGNR operator pair requires."""
+    n = kgrid.shape[-1]
+    batch = tuple(kgrid.shape[:-2])
+    flat = kgrid.reshape(batch + (n * n,))
+    xs, ys = _positions(angles, nro, n)
+    x0 = torch.ceil(xs - kernwidth).to(torch.int64)
+    y0 = torch.ceil(ys - kernwidth).to(torch.int64)
+
+    noff = int(2 * kernwidth) + 1
+    out = kgrid.new_zeros(batch + (angles.shape[0], nro))
+    for dx in range(noff):
+        xu = x0 + dx
+        wx = kb_kernel(xu.to(torch.float32) - xs, kernwidth, beta)
+        if not wrap:
+            wx = wx * ((xu >= 0) & (xu < n))
+        iu = torch.remainder(xu, n)
+        for dy in range(noff):
+            yu = y0 + dy
+            w = wx * kb_kernel(yu.to(torch.float32) - ys, kernwidth, beta)
+            if not wrap:
+                w = w * ((yu >= 0) & (yu < n))
+            idx = torch.remainder(yu, n) * n + iu           # row-major (y, x)
+            vals = torch.index_select(flat, -1, idx.reshape(-1))
+            out = out + vals.reshape(batch + idx.shape) * w.to(kgrid.dtype)
+    return out
+
+
+def _degrid_dense(
+    kgrid: torch.Tensor,
+    angles: torch.Tensor,
+    nro: int,
+    kernwidth: float,
+    beta: float,
+    pe_chunk: int = 8,
+    wrap: bool = True,
+) -> torch.Tensor:
+    """Separable dense formulation (the forward mirror of ops/grid.py):
+
+        s[p, ro] = sum_y B[p, ro, y] * sum_x A[p, ro, x] * G[y, x]
+
+    with A/B the KB weights of the sample against every grid column/row.
+    The periodic wrap of the gather is reproduced by wrapping the KB
+    distance into [-n/2, n/2)."""
+    n = kgrid.shape[-1]
+    xs, ys = _positions(angles, nro, n)
+    grid_pos = torch.arange(n, dtype=torch.float32, device=kgrid.device)
+
+    def wrapped_kb(d):
+        if wrap:
+            d = _mod(d + n / 2, n) - n / 2
+        return kb_kernel(d, kernwidth, beta).to(kgrid.dtype)
+
+    chunks = []
+    for p0 in range(0, angles.shape[0], pe_chunk):
+        xc = xs[p0 : p0 + pe_chunk]                   # (P, nro)
+        yc = ys[p0 : p0 + pe_chunk]
+        A = wrapped_kb(xc[..., None] - grid_pos)      # (P, nro, n)
+        B = wrapped_kb(yc[..., None] - grid_pos)
+        V = torch.einsum("prx,...yx->...pry", A, kgrid)
+        chunks.append(torch.einsum("pry,...pry->...pr", B, V))
+    return torch.cat(chunks, dim=-2)

@@ -1,0 +1,112 @@
+"""Forward degridding on the card (counterpart of
+`tron_tpu/ops/degrid_pallas.py`).
+
+The wrapper here launches the hand-written kernel of
+`csrc/degrid_radial2d.cu`, which replaces the Pallas kernel
+`_degrid_kernel`.  A CUDA tensor launches the kernel or raises; a CPU tensor
+takes the kernel's plain version (`ops/degrid.py`), and only because it lies
+on the CPU.  A kernel failure is never caught to fall back.
+
+The kernel takes any grid size and any readout count and does the periodic
+wrap itself, so the JAX package's dense fallback for untileable grids and
+its wrap-edge patch (`nufft._patch_degrid_wrap_edges`) have no counterpart.
+
+``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
+card), so a run can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tron_tpu_torch import _build
+from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_radial2d_plain
+from tron_tpu_torch.ops.degrid import lattice_radii
+from tron_tpu_torch.ops.grid_cuda import MATMUL_DTYPES
+
+LAUNCHES = 0
+
+MAX_OFF = 8  # neighbours per axis the kernel holds: int(2*kernwidth) + 1
+_INT_MAX = 2**31 - 1
+
+
+def to_grid_planes(kgrid: torch.Tensor) -> torch.Tensor:
+    """(C, n, n) complex -> (n, n, 2C) f32 grid planes, channel 2c holding
+    coil c's real part and 2c+1 its imaginary part: one neighbour of a
+    sample is then one contiguous run of 2C floats."""
+    C, n, _ = kgrid.shape
+    g = torch.view_as_real(kgrid.to(torch.complex64))      # (C, n, n, 2)
+    return g.permute(1, 2, 0, 3).reshape(n, n, 2 * C).contiguous()
+
+
+def _check(kgrid: torch.Tensor, angles: torch.Tensor, nro: int, kernwidth: float) -> None:
+    if kgrid.dim() != 3 or kgrid.dtype != torch.complex64:
+        raise ValueError(
+            f"kgrid must be (C, n, n) complex64, got {tuple(kgrid.shape)} {kgrid.dtype}"
+        )
+    C, ny, n = kgrid.shape
+    if ny != n or C == 0 or n == 0:
+        raise ValueError(f"kgrid shape {tuple(kgrid.shape)} is not C >= 1 square grids")
+    if angles.dim() != 1 or angles.dtype != torch.float32 or angles.numel() == 0:
+        raise ValueError(
+            f"angles must be (npe,) float32 with npe >= 1, got {tuple(angles.shape)} "
+            f"{angles.dtype}"
+        )
+    if angles.device != kgrid.device:
+        raise ValueError(f"angles on {angles.device}, kgrid on {kgrid.device}")
+    if nro < 1:
+        raise ValueError(f"nro must be >= 1, got {nro}")
+    if not 1 <= int(2 * kernwidth) + 1 <= MAX_OFF:
+        raise ValueError(
+            f"kernwidth {kernwidth} needs {int(2 * kernwidth) + 1} neighbours per axis; "
+            f"the kernel holds 1 to {MAX_OFF} (kernwidth < {MAX_OFF / 2})"
+        )
+    if angles.numel() * nro > _INT_MAX or n * n * 2 * C > _INT_MAX:
+        raise ValueError("npe*nro and n*n*2C must each fit a 32-bit int")
+
+
+def degrid_radial2d(
+    kgrid: torch.Tensor,
+    angles: torch.Tensor,
+    nro: int,
+    kernwidth: float,
+    beta: float,
+    matmul_dtype: str = "float32",
+    wrap: bool = True,
+) -> torch.Tensor:
+    """Forward degridding (counterpart of ``degrid_radial2d_pallas``, with
+    the wrap that the Pallas kernel leaves to a patch): kgrid (C, n, n) or
+    (n, n) complex -> samples (C, npe, nro) (or (npe, nro)) complex64.
+    ``matmul_dtype`` names the JAX precision class; the kernel computes in
+    fp32 for every class."""
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+    if kgrid.dim() == 2:
+        return degrid_radial2d(kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap)[0]
+    if kgrid.device.type == "cpu":
+        return degrid_radial2d_plain(kgrid, angles, nro, kernwidth, beta, wrap=wrap)
+    if kgrid.device.type != "cuda":
+        raise ValueError(f"no degridding kernel for device {kgrid.device}")
+    _check(kgrid, angles, nro, kernwidth)
+    return _launch(to_grid_planes(kgrid), angles, nro, kernwidth, beta, wrap)
+
+
+def _launch(gplanes, angles, nro, kernwidth, beta, wrap) -> torch.Tensor:
+    global LAUNCHES
+    built = _build.load()
+    n, _, K = gplanes.shape
+    npe = angles.shape[0]
+    ct = torch.cos(angles)
+    st = torch.sin(angles)
+    rad = lattice_radii(nro, n, gplanes.device)
+    out = torch.empty((K // 2, npe, nro), dtype=torch.complex64, device=gplanes.device)
+    with torch.cuda.device(gplanes.device):
+        code = built.lib.tron_degrid_radial2d_planes(
+            gplanes.data_ptr(), ct.data_ptr(), st.data_ptr(), rad.data_ptr(),
+            out.data_ptr(), npe, nro, n, K, int(2 * kernwidth) + 1, int(bool(wrap)),
+            float(kernwidth), float(beta),
+            torch.cuda.current_stream(gplanes.device).cuda_stream,
+        )
+    _build.check(built.lib, code, "degrid_radial2d kernel")
+    LAUNCHES += 1
+    return out

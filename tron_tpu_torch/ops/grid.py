@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from tron_tpu_torch.kernels.kb import kb_kernel
+from tron_tpu_torch.ops.degrid import lattice_radii
 
 
 def _radius_map(nxos: int, nro: int, device=None):
@@ -31,6 +32,13 @@ def _radius_map(nxos: int, nro: int, device=None):
     ridx = torch.trunc(rr.to(torch.float32) * (nro / nxos)).to(torch.int64) + nro // 2
     valid = (rr > -(nxos // 2)) & (ridx >= 0) & (ridx < nro)
     return rr.to(torch.float32), torch.clamp(ridx, 0, nro - 1), valid
+
+
+def drop_readout0(data: torch.Tensor) -> torch.Tensor:
+    """``data`` (..., nro) with readout 0 zeroed: the sample at radius
+    -nxos/2, which the gridding kernels never grid (their band starts at
+    row 1) and the dense raw-rows gridder would."""
+    return torch.cat([torch.zeros_like(data[..., :1]), data[..., 1:]], dim=-1)
 
 
 def _grid_dense(
@@ -75,13 +83,12 @@ def grid_radial2d(
     (`src/tron.cu:532`).
 
     ``raw_rows=True`` grids each readout at its exact radius
-    ((ro - nro/2) * nxos/nro) instead of the trunc-resample onto integer
-    grid radii (identical to the default path when nro == nxos)."""
+    ((ro/nro - 1/2) * nxos, the degridder's radius table `lattice_radii`)
+    instead of the trunc-resample onto integer grid radii (identical to the
+    default path when nro == nxos is a power of two)."""
     *batch, npe, nro = data.shape
     if raw_rows:
-        rr = (torch.arange(nro, dtype=torch.float32, device=data.device) - nro // 2) * (
-            nxos / nro
-        )
+        rr = lattice_radii(nro, nxos, data.device)
         ds = data
     else:
         rr, ridx, valid = _radius_map(nxos, nro, data.device)

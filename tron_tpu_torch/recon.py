@@ -1,5 +1,6 @@
-"""Reconstruction entry points (counterpart of the adjoint half of
-`tron_tpu/recon.py`): sliding-window frame scheduling over radial data.
+"""Reconstruction entry points (counterpart of `tron_tpu/recon.py`):
+sliding-window frame scheduling over radial data (adjoint, plain or CGNR)
+and the forward operator over image stacks.
 
 Frames run in order in a Python loop, each written into one preallocated
 output (the JAX package's ``lax.map`` / ``lax.scan``).  Features of the JAX
@@ -20,11 +21,13 @@ from tron_tpu_torch.nufft import (
     _kernel_backend,
     nufft_adjoint,
     nufft_adjoint_planes,
+    nufft_forward,
     planes_path_ok,
     sdc_weights,
 )
 from tron_tpu_torch.ops import grid_cuda
 from tron_tpu_torch.ops.coil import coil_combine_sos
+from tron_tpu_torch.solver import cgnr_radial2d
 from tron_tpu_torch.trajectory import spoke_angles
 
 
@@ -33,8 +36,6 @@ def _unported(feature: str, item: str):
 
 
 def _check_ported(cfg: ReconConfig) -> None:
-    if cfg.niter > 0:
-        _unported("CGNR (niter > 0)", "A13")
     if cfg.coil_combine == "walsh":
         _unported("coil_combine='walsh'", "A16")
 
@@ -74,7 +75,11 @@ def reconstruct_frame(data_window: torch.Tensor, skip, cfg: ReconConfig) -> torc
     _check_ported(cfg)
     npe = data_window.shape[-2]
     angles = spoke_angles(npe, cfg.scheme_for("adjoint"), skip, device=data_window.device)
-    return _combine(nufft_adjoint(data_window, angles, cfg), cfg)
+    if cfg.niter > 0:
+        coilimg = cgnr_radial2d(data_window, angles, cfg)
+    else:
+        coilimg = nufft_adjoint(data_window, angles, cfg)
+    return _combine(coilimg, cfg)
 
 
 def recon_frames(
@@ -89,7 +94,7 @@ def recon_frames(
     ``skip0`` is the global profile offset of data[..., 0, :]."""
     _check_ported(cfg)
     nro = data.shape[-1]
-    if planes_path_ok(cfg):
+    if cfg.niter == 0 and planes_path_ok(cfg):
         # hoist the once-per-acquisition half of the gridder's sample prep
         # (SDC, edge mask, complex->plane relayout) out of the frame loop;
         # each frame is then a contiguous slice of the spoke axis
@@ -228,15 +233,23 @@ def recon_radial2d(
     *,
     device: torch.device | str,
 ) -> np.ndarray:
-    """Host-level adjoint recon on ``device``, mimicking the reference program's
-    contract: indata (nc, nt, nro, npe1) [+ optional trailing npe2 axis] ->
-    images (nz, nt, n, n) complex64 (the CLI relabels to .ra dims
-    (1, nt, nx, ny, nz)).  ``half_readback`` casts images to float16 on the
-    device before the transfer."""
+    """Host-level recon on ``device``, mimicking the reference program's
+    contract.
+
+    adjoint: indata (nc, nt, nro, npe1) [+ optional trailing npe2 axis] ->
+    images (nz, nt, n, n) complex64 (the CLI relabels to .ra dims (1, nt,
+    nx, ny, nz)); CGNR when cfg.niter > 0.
+
+    forward: indata (nc, nt, nx, ny, nz) images -> samples (nz, nc, nt,
+    npe1, nro) complex64 with nro = gridos*nx and npe1 = u*nro, every frame
+    on the one angle set that starts at skip_angles.
+
+    ``half_readback`` casts adjoint images to float16 on the device before
+    the transfer."""
     if cfg.koosh:
         _unported("-3 stack-of-stars (koosh)", "A15")
     if not cfg.adjoint:
-        _unported("forward mode (adjoint=False)", "A11")
+        return _forward_radial2d(indata, cfg, device)
     _check_ported(cfg)
     nc, nt, nro, npe1 = indata.shape[:4]
     if 0 < cfg.coil_compress < nc:
@@ -260,3 +273,19 @@ def recon_radial2d(
         return _fetch_host(out, half_readback)
     out = frames_fn(d, cfg, work, slide, nz)  # (nz, n, n)
     return _fetch_host(out, half_readback)[:, None]
+
+
+def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarray:
+    """The forward branch of recon_radial2d: each image frame z (all coils
+    and repetitions as channels) is one nufft_forward call."""
+    nc, nt, nx, ny, nz = indata.shape[:5]
+    nro = int(cfg.gridos * nx)
+    npe1 = int(cfg.data_undersamp * nro)
+    # (nc, nt, nx, ny, nz) -> (nz, nc*nt, ny, nx) host-side
+    imgs = np.ascontiguousarray(
+        np.transpose(np.asarray(indata), (4, 0, 1, 3, 2)), dtype=np.complex64
+    ).reshape(nz, nc * nt, ny, nx)
+    d = torch.from_numpy(imgs).to(device)
+    angles = spoke_angles(npe1, cfg.scheme_for("forward"), cfg.skip_angles, device=d.device)
+    out = _map_frames(lambda z: nufft_forward(d[z], angles, cfg, nro=nro), nz)
+    return out.cpu().numpy().reshape(nz, nc, nt, npe1, nro)
