@@ -25,8 +25,22 @@ Phases, one line each (any failure raises and exits non-zero):
              its data residual falls
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
  15 timing2  degrid kernel vs plain ms, forward Msamples/s, CGNR ms per frame
-Then the kernel table as one JSON line, the nvidia-smi line, and the result
-line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+ 16 seg      the tile-culled gridding kernel (windowed=False) vs its plain
+             version and bit for bit vs the loop kernel (nxos 64-640, C 1-10,
+             golden and linear-half angles, signed data, both lattices);
+             timed beside the loop kernel on a whole-body frame
+ 17 batched  the static-unroll gridding kernel (tuning.batched) bit for bit
+             vs the loop kernel (both lattices, kw 1.5/2/3); timed
+ 18 stream   tron-torch -a -G -u 0.4 -d 21 --stream on the whole-body series
+             written to a .ra (twice), with --incremental, --half and
+             TRON_BATCHED=1, each vs the in-memory recon, with launch counts
+             by kernel and the host wall from file to file; then its stages
+             alone and the card's busy share over one profiled run
+ 19 kbench   python -m tron_tpu_torch.tools.kbench: default, --no-windowed,
+             --batched and --op degrid, each with --check, at whole-body
+Then the kernel table as one JSON line (each kernel's launches on its main
+path, error, ms, plain ms, bound and library call), the nvidia-smi line, and
+the result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +66,9 @@ DOT_TOL = 1e-4                        # pair dot test (tests/test_grid_pallas.py
 NITER = 10                            # CGNR iterations of the main path (-i 10)
 NF = 32                               # forward frames
 CG_WALL = 120.0                       # s; above it the CGNR path takes the first 128 frames
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM peak device-memory rate
+FP32_FLOPS = 67e12                    # H100 SXM peak fp32 rate outside the tensor cores
+KB_FLOPS = 42                         # one kb_weight: 17 FMA (2 each) + sqrt, div, 6 more
 
 
 def log(phase: str, msg: str) -> None:
@@ -107,25 +124,32 @@ def main() -> int:
     # -- 2 build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.load()
-    # one line per kernel instantiation: name<channel block[, row lattice]>,
-    # from ptxas's "Compiling entry function", spill and register lines
-    ptxas, name, spill = [], None, ""
+    # per kernel family (loop, batched per NSLOT, seg, degrid): the register
+    # range over its instantiations, the whole-body channel block (12) and
+    # the instantiations that spill, from ptxas's -v lines
+    fam, name = {}, None
     for ln in built.log.splitlines():
-        m = re.search(r"((?:de)?grid_radial2d_kernel)ILi(\d+)E(?:Lb([01])E)?", ln)
+        m = re.search(r"((?:de)?grid(?:_seg)?_radial2d_kernel)ILi(\d+)E(?:Lb([01])E)?(?:Li(\d+)E)?", ln)
         if "Compiling entry function" in ln and m:
-            lattice = "" if m.group(3) is None else (", lattice" if m.group(3) == "1" else ", integer")
-            name = f"{m.group(1)}<{m.group(2)}{lattice}>"
+            slots = m.group(4)
+            key = m.group(1) + ("" if slots in (None, "0") else f"<NSLOT={slots}>")
+            name = (key, f"{m.group(2)}{'' if m.group(3) is None else ('L' if m.group(3) == '1' else 'I')}")
         elif name and "spill stores" in ln:
-            spill = ln.strip()
+            sp = re.search(r"(\d+) bytes spill stores", ln)
+            if sp and int(sp.group(1)):
+                fam.setdefault(name[0], {"regs": {}, "spills": []})["spills"].append(name[1])
         elif name and "registers" in ln:
-            regs = re.search(r"Used \d+ registers", ln)
-            ptxas.append(f"{name}: {regs.group(0) if regs else ln.strip()}; {spill}")
-            name, spill = None, ""
-    how = f"nvcc {' '.join(_build.NVCC_FLAGS)}" if built.log else "reused, same sources"
+            regs = re.search(r"Used (\d+) registers", ln)
+            fam.setdefault(name[0], {"regs": {}, "spills": []})["regs"][name[1]] = int(regs.group(1))
+            name = None
+    how = f"nvcc {' '.join(_build.NVCC_FLAGS)}, one per source" if built.log else "reused, same sources"
     log("build", f"{built.path.relative_to(ROOT)} from tron_tpu_torch/csrc/ "
         f"({how}) in {time.perf_counter() - t0:.2f} s")
-    for ln in ptxas:
-        log("build", f"ptxas: {ln}")
+    for key, f in sorted(fam.items()):
+        r = f["regs"]
+        log("build", f"ptxas {key}: {len(r)} instantiations, {min(r.values())}-{max(r.values())} "
+            f"registers (12 channels: {', '.join(f'{k} {v}' for k, v in r.items() if k[:2] == '12')}); "
+            f"spills in {sorted(f['spills']) or 'none'} (channel block, I/L lattice)")
 
     # -- 3 kernel vs plain ---------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -192,7 +216,7 @@ def main() -> int:
     outs = {}
     for mode in ("direct", "incremental"):
         c = dataclasses.replace(cfg, incremental=mode == "incremental")
-        grid_cuda.LAUNCHES = 0
+        grid_cuda.reset_launches()
         t0 = time.perf_counter()
         out = recon_radial2d(indata, c, device=dev)
         wall = time.perf_counter() - t0
@@ -202,7 +226,8 @@ def main() -> int:
             f"kernel launches {n_launch}, host wall {wall:.3f} s (incl. transfers)")
         require(out.shape == (NZ, 1, NRO // 2, NRO // 2), f"{mode} shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"{mode} output not finite")
-        require(n_launch == NZ, f"{mode}: {n_launch} kernel launches, expected {NZ}")
+        require(n_launch == NZ and grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == NZ,
+                f"{mode}: {grid_cuda.LAUNCH_COUNTS} kernel launches, expected {NZ} of the loop kernel")
         outs[mode] = out[:, 0]
     a = torch.from_numpy(outs["direct"]).reshape(NZ, -1)
     b = torch.from_numpy(outs["incremental"]).reshape(NZ, -1)
@@ -369,8 +394,8 @@ def main() -> int:
              + 1j * rng.standard_normal((NC, 1, n_img, n_img, NF), dtype=np.float32)
              ).astype(np.complex64)
     fcfg = ReconConfig(golden_angle=True, data_undersamp=1.0)
-    grid_cuda.LAUNCHES = 0
-    degrid_cuda.LAUNCHES = 0
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
     t0 = time.perf_counter()
     fout = recon_radial2d(fimgs, fcfg, device=dev)
     wall = time.perf_counter() - t0
@@ -402,8 +427,8 @@ def main() -> int:
            f"the first 128 frames: the series would take {per_frame * NZ:.0f} s > {CG_WALL:.0f} s")
     log("cgnr", f"8-frame probe {per_frame * 1e3:.1f} ms per frame; running {why}")
     cin = indata if nzc == NZ else np.ascontiguousarray(indata[..., : work + (nzc - 1) * SLIDE])
-    grid_cuda.LAUNCHES = 0
-    degrid_cuda.LAUNCHES = 0
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
     t0 = time.perf_counter()
     cout = recon_radial2d(cin, ccfg, device=dev)
     wall = time.perf_counter() - t0
@@ -424,8 +449,8 @@ def main() -> int:
             f"nrmse {e:.3e} (tol {CG_TOL})")
         require(e <= CG_TOL, f"cgnr frame {z} vs plain {e:.3e}")
     tcfg = dataclasses.replace(ccfg, toeplitz=True)
-    grid_cuda.LAUNCHES = 0
-    degrid_cuda.LAUNCHES = 0
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
     tout = recon_radial2d(probe, tcfg, device=dev)
     log("cgnr", f"--toeplitz on 8 frames: out {tout.shape}, grid launches "
         f"{grid_cuda.LAUNCHES}, degrid launches {degrid_cuda.LAUNCHES}; vs pair-mode CGNR "
@@ -504,27 +529,330 @@ def main() -> int:
     log("timing2", f"CGNR -i {NITER}: {1e3 * s / nzt:.3f} ms per frame ({nzt} frames, host "
         f"stop test each iteration) on {card}")
 
+    # -- bounds: the least time the card could take for a kernel's work -----
+    def bound(nbytes: float, flops: float):
+        """max(bytes / memory rate, operations / fp32 rate), in ms, and which."""
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+        return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    def support(r, c, n):
+        """Grid points X in [-n/2, n-1-n/2] with |r*c - X| < kw, per sample."""
+        h = n // 2
+        p = r * c
+        lo = torch.clamp(torch.floor(p - kw) + 1, min=-h)
+        hi = torch.clamp(torch.ceil(p + kw) - 1, max=n - 1 - h)
+        return torch.clamp(hi - lo + 1, min=0)
+
+    def work_of(radii, angles, n, K):
+        """(flops, samples) of the terms this data needs: per sample with
+        terms, one KB per x- and y-neighbour, then per (sample, pixel) term
+        one weight product and K channel FMAs (2 flops each)."""
+        a = angles.double()[:, None]
+        cx = support(radii.double()[None, :], torch.cos(a), n)
+        cy = support(radii.double()[None, :], torch.sin(a), n)
+        live = (cx > 0) & (cy > 0)
+        terms = float((cx * cy).sum())
+        return terms * (2 * K + 1) + KB_FLOPS * float(((cx + cy) * live).sum())
+
+    def grid_bound(planes, angles, nxos):
+        """Gridding on integer radii: planes and angles in, grids out; row 0
+        is never gridded."""
+        npe, nR, K = planes.shape
+        radii = (torch.arange(nR, device=dev, dtype=torch.float64) - nxos // 2)[1:]
+        flops = work_of(radii, angles, nxos, K)
+        nbytes = planes.numel() * 4 + angles.numel() * 4 + (K // 2) * nxos * nxos * 8
+        return bound(nbytes, flops)
+
+    def degrid_bound(kgrid, angles, nro):
+        """Degridding, clip: grid and angles in (radius table included),
+        samples out."""
+        C, n, _ = kgrid.shape
+        flops = work_of(lattice_radii(nro, n, dev), angles, n, 2 * C)
+        nbytes = kgrid.numel() * 8 + angles.numel() * 4 + nro * 4 + C * angles.numel() * nro * 8
+        return bound(nbytes, flops)
+
+    # -- 16 seg: the tile-culled gridding kernel (windowed=False) -------------
+    from tron_tpu_torch.config import KernelTuning
+    from tron_tpu_torch.ops.degrid import lattice_radii
+    from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
+
+    seg_cases = [  # name, nxos, coils, spokes, angle scheme, nro of an exact lattice
+        ("nxos64 C1 npe8 golden", 64, 1, 8, "golden", None),
+        ("nxos128 C2 npe12 linear_half", 128, 2, 12, "linear_half", None),
+        ("nxos256 C2 npe48 golden, lattice nro 256", 256, 2, 48, "golden", 256),
+        ("nxos384 C3 npe30 linear_half", 384, 3, 30, "linear_half", None),
+        ("nxos384 C3 npe30 golden, lattice nro 512 (gridos 1.5)", 384, 3, 30, "golden", 512),
+        ("nxos512 C6 npe204 golden", 512, 6, 204, "golden", None),
+        ("nxos512 C6 npe204 golden, lattice nro 512", 512, 6, 204, "golden", 512),
+        ("nxos640 C2 npe24 linear_half, lattice nro 512 (gridos 2.5)", 640, 2, 24, "linear_half", 512),
+        ("nxos100 C3 npe17 golden (partial edge tiles)", 100, 3, 17, "golden", None),
+        ("nxos128 C10 npe1500 golden (2 channel blocks, 6 spoke chunks)", 128, 10, 1500, "golden", None),
+    ]
+    seg_err = None
+    for name, nxos, C, npe, scheme, nro in seg_cases:
+        d = cgrid(C, npe, nro or nxos)
+        d[:, : npe // 2] *= -1  # signed, as an incremental delta
+        sang = spoke_angles(npe, scheme, 19000 if scheme == "golden" else 0, device=dev)
+        if nro is None:
+            p = grid_cuda.to_sample_planes(d, nxos)
+            got = grid_cuda.grid_radial2d_planes(p, sang, nxos, kw, beta, windowed=False)
+            loop = grid_cuda.grid_radial2d_planes(p, sang, nxos, kw, beta)
+            want = grid_radial2d_planes_culled(p, sang, nxos, kw, beta)
+        else:
+            got = grid_cuda.grid_radial2d_exact(d, sang, nxos, kw, beta, windowed=False)
+            loop = grid_cuda.grid_radial2d_exact(d, sang, nxos, kw, beta)
+            want = grid_radial2d_planes_culled(grid_cuda._planes(d), sang, nxos, kw, beta,
+                                               rad=lattice_radii(nro, nxos, dev))
+        torch.cuda.synchronize()
+        e = nrmse(got, want)
+        mae = float((got - want).abs().max())
+        same = torch.equal(got, loop)
+        log("seg", f"{name}: vs culled plain nrmse {e:.3e} max_abs_err {mae:.3e} (tol {KERNEL_TOL}); "
+            f"bitwise equal to the loop kernel: {same}")
+        require(e <= KERNEL_TOL, f"seg kernel vs plain {name}: nrmse {e:.3e}")
+        require(same, f"seg kernel differs from the loop kernel: {name}")
+        if name == "nxos512 C6 npe204 golden":
+            seg_err = mae
+    wb_planes, wb_ang = planes_case(512, 6, 204, 19000)
+    d42_planes, d42_ang = planes_case(512, 6, 42, 19950, signed=True)
+    loopk = lambda: grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
+    segk = lambda: grid_cuda.grid_radial2d_planes(  # noqa: E731
+        wb_planes, wb_ang, 512, kw, beta, windowed=False)
+    cplain = lambda: grid_radial2d_planes_culled(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
+    ts = [timed(cplain, 1), timed(loopk, 50), timed(segk, 50), timed(segk, 50), timed(loopk, 50),
+          timed(cplain, 1)]
+    seg_ms = 1e3 * (ts[2] + ts[3]) / 2
+    seg_plain_ms = 1e3 * (ts[0] + ts[5]) / 2
+    seg_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
+        d42_planes, d42_ang, 512, kw, beta, windowed=False), 50)
+    log("seg", f"one whole-body frame (nxos 512, 6 coils, 204 spokes): seg kernel {seg_ms:.4f} ms, loop "
+        f"kernel {1e3 * (ts[1] + ts[4]) / 2:.4f} ms, culled plain {seg_plain_ms:.4f} ms "
+        f"(plain, loop, seg, seg, loop, plain: {[round(1e3 * t, 4) for t in ts]}); 42-spoke delta "
+        f"seg kernel {seg_delta_ms:.4f} ms on {card}")
+
+    # -- 17 batched: the static-unroll gridding kernel (tuning.batched) -------
+    bt = KernelTuning(batched=True)
+    for kwb in (1.5, 2.0, 3.0):
+        bb = kb_beta(kwb, 2.0)
+        for lname, nxos, nro in (("integer radii, nxos 512", 512, None),
+                                 ("lattice nro 512, nxos 384 (gridos 1.5)", 384, 512),
+                                 ("lattice nro 512, nxos 640 (gridos 2.5)", 640, 512)):
+            if nro is None:
+                got = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, nxos, kwb, bb, tuning=bt)
+                loop = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, nxos, kwb, bb)
+            else:
+                d = cgrid(6, 204, nro)
+                got = grid_cuda.grid_radial2d_exact(d, wb_ang, nxos, kwb, bb, tuning=bt)
+                loop = grid_cuda.grid_radial2d_exact(d, wb_ang, nxos, kwb, bb)
+            torch.cuda.synchronize()
+            same = torch.equal(got, loop)
+            slots = grid_cuda.pick_nslot(kwb, 1.0 if nro is None else nro / nxos)
+            log("batched", f"kw {kwb} {lname}, 6 coils, 204 spokes: NSLOT {slots} (row bound "
+                f"{grid_cuda.row_bound(kwb, 1.0 if nro is None else nro / nxos)}); bitwise equal to the "
+                f"loop kernel: {same}")
+            require(same, f"batched kernel differs from the loop kernel: kw {kwb} {lname}")
+    bat = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta, tuning=bt)
+    want = grid_radial2d_planes_plain(wb_planes, wb_ang, 512, kw, beta)
+    bat_err = float((bat - want).abs().max())
+    e = nrmse(bat, want)
+    log("batched", f"whole-body frame vs plain: nrmse {e:.3e} max_abs_err {bat_err:.3e}")
+    require(e <= KERNEL_TOL, f"batched vs plain nrmse {e:.3e}")
+    batk = lambda: grid_cuda.grid_radial2d_planes(  # noqa: E731
+        wb_planes, wb_ang, 512, kw, beta, tuning=bt)
+    wplain = lambda: grid_radial2d_planes_plain(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
+    tb = [timed(wplain, 5), timed(loopk, 50), timed(batk, 50), timed(batk, 50), timed(loopk, 50),
+          timed(wplain, 5)]
+    bat_ms = 1e3 * (tb[2] + tb[3]) / 2
+    bat_plain_ms = 1e3 * (tb[0] + tb[5]) / 2
+    bat_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
+        d42_planes, d42_ang, 512, kw, beta, tuning=bt), 50)
+    log("batched", f"one whole-body frame: batched kernel {bat_ms:.4f} ms, loop kernel "
+        f"{1e3 * (tb[1] + tb[4]) / 2:.4f} ms, plain {bat_plain_ms:.4f} ms (plain, loop, batched, "
+        f"batched, loop, plain: {[round(1e3 * t, 4) for t in tb]}); 42-spoke delta batched kernel "
+        f"{bat_delta_ms:.4f} ms on {card}")
+
+    # -- 18 stream: tron-torch --stream on the whole-body series --------------
+    half_ref = recon_radial2d(indata, cfg, half_readback=True, device=dev)[:, 0]
+    blocks = -(-NZ // 64)
+    stream_b1 = stream_b5 = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        fin, fout = os.path.join(tmp, "wholebody.ra"), os.path.join(tmp, "out.ra")
+        t0 = time.perf_counter()
+        ra_write(indata[..., None], fin)
+        log("stream", f"wrote the whole-body series ({NC}, 1, {NRO}, {npe1}, 1) complex64, "
+            f"{os.path.getsize(fin) / 1e6:.1f} MB, in {time.perf_counter() - t0:.2f} s")
+        first = None
+        for name, extra, env in (
+            ("--stream", [], {}),
+            ("--stream, again", [], {}),
+            ("--stream --incremental", ["--incremental"], {}),
+            ("--stream --half", ["--half"], {}),
+            ("TRON_BATCHED=1 --stream", [], {"TRON_BATCHED": "1"}),
+        ):
+            os.environ.update(env)
+            grid_cuda.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "--stream", "-g", "0",
+                               *extra, fin, fout])
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            wall = time.perf_counter() - t0
+            counts = dict(grid_cuda.LAUNCH_COUNTS)
+            require(rc == 0, f"{name}: exit {rc}")
+            res = ra_read(fout)
+            if "--half" in extra:
+                require(res.shape == (2, 1, 1, n_img, n_img, NZ) and res.dtype == np.float16,
+                        f"{name}: {res.shape} {res.dtype}")
+                hre = np.ascontiguousarray(res[0, 0, 0].transpose(2, 1, 0))
+                him = np.ascontiguousarray(res[1, 0, 0].transpose(2, 1, 0))
+                same = (np.array_equal(hre, half_ref.real.astype(np.float16))
+                        and np.array_equal(him, half_ref.imag.astype(np.float16)))
+                e = nrmse(hre.astype(np.float32) + 1j * him.astype(np.float32), half_ref)
+                what = "in-memory --half readback"
+            else:
+                require(res.shape == (1, 1, n_img, n_img, NZ) and res.dtype == np.complex64,
+                        f"{name}: {res.shape} {res.dtype}")
+                frames = np.ascontiguousarray(res[0, 0].transpose(2, 1, 0))
+                require(bool(np.isfinite(frames).all()), f"{name}: output not finite")
+                e = nrmse(frames, outs["direct"])
+                same = np.array_equal(frames, outs["direct"])
+                what = "in-memory direct recon"
+                if first is None:
+                    first = frames
+                elif name == "--stream, again":
+                    require(np.array_equal(frames, first), "repeat --stream run is not bitwise equal")
+                if "--incremental" in extra:
+                    worst = max(nrmse(frames[z], outs["direct"][z]) for z in range(NZ))
+                    what += (f" (worst frame {worst:.3e}; vs in-memory incremental "
+                             f"{nrmse(frames, outs['incremental']):.3e})")
+            kernel = "grid_radial2d_batched" if env else "grid_radial2d"
+            log("stream", f"tron-torch -a -G -u 0.4 -d {SLIDE} {name}: file to file "
+                f"{wall:.3f} s host wall = {NZ * NC * NRO * work / wall / 1e6:.1f} Msamples/s; launches "
+                f"{counts}; vs {what}: nrmse {e:.3e}, bitwise equal {same} on {card}")
+            require(e <= 1e-5, f"{name}: nrmse {e:.3e} vs {what}")
+            require(counts[kernel] == blocks * 64 and grid_cuda.LAUNCHES == counts[kernel],
+                    f"{name}: launches {counts}, expected {blocks * 64} of {kernel}")
+            if env:
+                stream_b5 += counts[kernel]
+            else:
+                stream_b1 += counts[kernel]
+            os.remove(fout)
+
+        # where the streamed wall goes: each stage alone, then the card's busy
+        # share over one profiled --stream run (the page cache holds the file)
+        from tron_tpu_torch.io.native import ra_read_profiles
+
+        bf, z0s = 64, [min(z0, NZ - 64) for z0 in range(0, NZ, 64)]
+        nblk = work + (bf - 1) * SLIDE
+        pinned = torch.empty((1, NC, nblk, NRO), dtype=torch.complex64, pin_memory=True)
+        t0 = time.perf_counter()
+        for z0 in z0s:
+            pinned.numpy()[...] = ra_read_profiles(fin, z0 * SLIDE, nblk).transpose(1, 0, 3, 2)
+        t_load = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bouts = [recon_frames(dfull[:, z0 * SLIDE: z0 * SLIDE + nblk], cfg, work, SLIDE, bf, z0 * SLIDE)
+                 for z0 in z0s]
+        t_disp = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_comp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hosts = [o.cpu().numpy() for o in bouts]
+        t_d2h = time.perf_counter() - t0
+        del bouts, hosts
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "--stream", "-g", "0", fin, fout])
+            wall = time.perf_counter() - t0
+        require(rc == 0, f"profiled --stream: exit {rc}")
+        ka = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in ka) / 1e6
+        grid_s = sum(e.self_device_time_total for e in ka if "grid_radial2d_kernel" in e.key) / 1e6
+        log("stream", f"alone: loader (read {len(z0s)} blocks of {nblk} spokes, transpose into pinned) "
+            f"{t_load:.3f} s; frames on device-resident data {t_comp:.3f} s (dispatch {t_disp:.3f} s); "
+            f"D2H {t_d2h:.3f} s. Profiled --stream: wall {wall:.3f} s, card busy {busy:.3f} s "
+            f"({100 * busy / wall:.1f} %, kernels summed over streams), gridding kernel {grid_s:.3f} s "
+            f"({100 * grid_s / busy:.1f} % of busy) on {card}")
+
+    # -- 19 kbench: the port's kernel bench ------------------------------------
+    from tron_tpu_torch.tools import kbench
+
+    kb = {}
+    for name, argv, kernel in (("default", [], "grid_radial2d"),
+                               ("--no-windowed", ["--no-windowed"], "grid_seg_radial2d"),
+                               ("--batched", ["--batched"], "grid_radial2d_batched"),
+                               ("--op degrid", ["--op", "degrid"], "degrid_radial2d")):
+        r = kbench.main([*argv, "--check"])
+        kb[name] = r
+        log("kbench", f"python -m tron_tpu_torch.tools.kbench {name} --check: kernel {r['kernel']}, "
+            f"{r['ms_per_frame']:.4f} ms/frame, {r['msamples_per_s']:.1f} Msamples/s, nrmse vs plain "
+            f"{r['nrmse_vs_plain']:.3e} on {card}")
+        require(r["kernel"] == kernel, f"kbench {name} ran {r['kernel']}, expected {kernel}")
+        require(r["nrmse_vs_plain"] <= KERNEL_TOL, f"kbench {name}: nrmse {r['nrmse_vs_plain']:.3e}")
+
+    g_bound, g_by = grid_bound(wb_planes, wb_ang, 512)
+    d_bound, d_by = degrid_bound(kg, dang, NRO)
+    # B2's contract (_grid_kernel: grids that do not tile, nxos < 256) runs on
+    # the same kernel; timed at the size of tests/test_grid_pallas.py:37-43
+    s_planes, s_ang = planes_case(128, 2, 12, 5)
+    b2k = lambda: grid_cuda.grid_radial2d_planes(s_planes, s_ang, 128, kw, beta)  # noqa: E731
+    b2p = lambda: grid_radial2d_planes_plain(s_planes, s_ang, 128, kw, beta)  # noqa: E731
+    t2 = [timed(b2p, 20), timed(b2k, 200), timed(b2k, 200), timed(b2p, 20)]
+    b2_bound, b2_by = grid_bound(s_planes, s_ang, 128)
+    log("b2", f"nxos 128, 2 coils, 12 spokes: kernel {1e3 * (t2[1] + t2[2]) / 2:.4f} ms, plain "
+        f"{1e3 * (t2[0] + t2[3]) / 2:.4f} ms (plain, kernel, kernel, plain: "
+        f"{[round(1e3 * t, 4) for t in t2]}), bound {b2_bound * 1e3:.3f} us ({b2_by}) on {card}")
+    log("bound", f"gridding one whole-body frame: {g_bound * 1e3:.3f} us ({g_by}); degridding one "
+        f"CGNR frame: {d_bound * 1e3:.3f} us ({d_by}); H100 SXM {HBM_BYTES_PER_S / 1e12} TB/s, "
+        f"{FP32_FLOPS / 1e12:g} TFLOP/s fp32")
+
     require("jax" not in sys.modules, "JAX was imported")
+    common = {"route": "cuda", "bound_ms": g_bound, "bound_by": g_by, "library_ms": None}
     print(json.dumps({"kernels": [
         {
             "name": "grid_radial2d",
-            "route": "cuda",
             "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
             "replaces": "tron_tpu/ops/grid_pallas.py:933",
-            "launches": launches + cg_grid,
+            "launches": launches + cg_grid + stream_b1,
             "max_abs_err": err512,
             "ms": kern_ms,
             "plain_ms": plain_ms,
+            **common,
+        },
+        {
+            "name": "grid_radial2d_batched",
+            "source": "tron_tpu_torch/csrc/grid_radial2d_batched.cu",
+            "replaces": "tron_tpu/ops/grid_pallas.py:1161",
+            "launches": stream_b5,
+            "max_abs_err": bat_err,
+            "ms": bat_ms,
+            "plain_ms": bat_plain_ms,
+            **common,
+        },
+        {
+            "name": "grid_seg_radial2d",
+            "source": "tron_tpu_torch/csrc/grid_seg_radial2d.cu",
+            "replaces": "tron_tpu/ops/grid_pallas.py:366",
+            "launches": kb["--no-windowed"]["launches"]["grid_seg_radial2d"],
+            "max_abs_err": seg_err,
+            "ms": seg_ms,
+            "plain_ms": seg_plain_ms,
+            **common,
         },
         {
             "name": "degrid_radial2d",
-            "route": "cuda",
             "source": "tron_tpu_torch/csrc/degrid_radial2d.cu",
             "replaces": "tron_tpu/ops/degrid_pallas.py:44",
             "launches": fwd_launches + cg_degrid,
             "max_abs_err": derr512,
             "ms": dkern_ms,
             "plain_ms": dplain_ms,
+            **common,
+            "bound_ms": d_bound,
+            "bound_by": d_by,
         },
     ]}), flush=True)
     print(smi, flush=True)

@@ -160,3 +160,85 @@ def test_degrid_wrapper_raises_on_bad_input(dev):
                                     KW, BETA)
     with pytest.raises(ValueError):
         degrid_cuda.degrid_radial2d(g, torch.zeros(4, device=dev), 64, 4.0, BETA)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("kw", [1.5, 2.0, 3.0])
+@pytest.mark.parametrize(
+    "nxos,C,npe,scheme",
+    [(64, 1, 8, "golden"), (100, 3, 17, "golden"), (384, 3, 30, "linear_half"),
+     (512, 6, 204, "golden"), (128, 10, 1500, "golden")],
+)
+def test_seg_and_batched_kernels_equal_loop_kernel(dev, exact, kw, nxos, C, npe, scheme):
+    """The tile-culled kernel (windowed=False, B4) and the static-unroll
+    kernel (tuning.batched, B5) are bitwise equal to the loop kernel (B1):
+    culling drops only zero terms and a masked slot adds fmaf(0, s, acc).
+    Partial tiles (nxos 100), two spoke chunks (1500), two channel blocks
+    (C 10), signed data, both lattices."""
+    from tron_tpu_torch.config import KernelTuning
+    from tron_tpu_torch.ops.degrid import lattice_radii
+    from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
+
+    beta = kb_beta(kw, 2.0)
+    rng = np.random.default_rng(nxos + C + int(10 * kw))
+    nR = nxos * 3 // 4 if exact else nxos
+    planes = torch.from_numpy(rng.standard_normal((npe, nR, 2 * C), dtype=np.float32)).to(dev)
+    planes[: npe // 2] *= -1
+    ang = spoke_angles(npe, scheme, 19000 if scheme == "golden" else 0, device=dev)
+    rad = lattice_radii(nR, nxos, dev) if exact else None
+    counts = dict(grid_cuda.LAUNCH_COUNTS)
+    loop = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, None)
+    seg = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, False, None)
+    batched = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, KernelTuning(batched=True))
+    torch.cuda.synchronize()
+    assert torch.equal(seg, loop) and torch.equal(batched, loop)
+    for k in grid_cuda.KERNELS:
+        assert grid_cuda.LAUNCH_COUNTS[k] == counts[k] + 1
+    if npe <= 204 and kw == 2.0:
+        assert _nrmse(seg, grid_radial2d_planes_culled(planes, ang, nxos, kw, beta, rad=rad)) <= TOL
+
+
+@pytest.mark.gpu
+def test_batched_wrapper_raises_beyond_its_slots(dev):
+    from tron_tpu_torch.config import KernelTuning
+
+    planes = torch.zeros((4, 64, 2), device=dev)
+    ang = spoke_angles(4, "golden", 0, device=dev)
+    with pytest.raises(ValueError, match="row slots"):
+        grid_cuda.grid_radial2d_planes(planes, ang, 64, 5.0, kb_beta(5.0, 2.0),
+                                       tuning=KernelTuning(batched=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["direct", "incremental", "half", "batched"])
+def test_streaming_matches_in_memory(dev, tmp_path, monkeypatch, mode):
+    """The streamed recon on the card (pinned buffers, copy streams, reader
+    thread) vs the in-memory recon: the same frames through the same
+    kernels, so the same bits (incremental: each block restarts its sum)."""
+    import dataclasses
+
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.io import ra_write
+    from tron_tpu_torch.recon import recon_radial2d, recon_radial2d_streaming
+
+    rng = np.random.default_rng(5)
+    shape = (4, 1, 256, 102 + 40 * 21, 1)
+    d = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    ra_write(d, tmp_path / "d.ra")
+    cfg = ReconConfig(golden_angle=True, data_undersamp=0.4, prof_slide=21, adjoint=True,
+                      incremental=mode == "incremental")
+    if mode == "batched":
+        monkeypatch.setenv("TRON_BATCHED", "1")
+    grid_cuda.reset_launches()
+    got = recon_radial2d_streaming(tmp_path / "d.ra", cfg, batch_frames=16, device=dev,
+                                   half=mode == "half")
+    want = recon_radial2d(d[..., 0], dataclasses.replace(cfg, incremental=False), device=dev)
+    kernel = "grid_radial2d_batched" if mode == "batched" else "grid_radial2d"
+    assert grid_cuda.LAUNCH_COUNTS[kernel] > 0 and grid_cuda.LAUNCHES == grid_cuda.LAUNCH_COUNTS[kernel]
+    if mode == "half":
+        assert torch.equal(torch.from_numpy(got[0]), torch.from_numpy(want.real.astype(np.float16)))
+    elif mode == "incremental":
+        assert _nrmse(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5
+    else:
+        assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))

@@ -133,3 +133,93 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         grid_cuda._check_planes(torch.zeros((4, 2, 64)).transpose(1, 2), ang, 64)
     with pytest.raises(ValueError, match="angles"):
         grid_cuda._check_planes(planes, torch.zeros(5), 64)
+
+
+def test_kernel_tuning_from_env_matches_jax(monkeypatch):
+    from tron_tpu.config import KernelTuning as JaxTuning
+    from tron_tpu_torch.config import KernelTuning
+
+    monkeypatch.delenv("TRON_BATCHED", raising=False)
+    assert KernelTuning.from_env().batched is JaxTuning.from_env().batched is False
+    for v in ("1", "0", "2"):
+        monkeypatch.setenv("TRON_BATCHED", v)
+        assert KernelTuning.from_env().batched == JaxTuning.from_env().batched
+
+
+@pytest.mark.parametrize("batched", [None, False, True])
+def test_from_jax_fields_carries_batched(monkeypatch, batched):
+    """A JAX config's tuning arrives with its ``batched`` (the Mosaic/VMEM
+    fields are dropped); None stays None and resolves from the env."""
+    import dataclasses
+
+    from tron_tpu.config import KernelTuning as JaxTuning
+    from tron_tpu.config import ReconConfig as JaxConfig
+    from tron_tpu_torch.config import KernelTuning, ReconConfig
+
+    monkeypatch.setenv("TRON_BATCHED", "1")
+    jt = None if batched is None else JaxTuning(batched=batched, ws=24, vmem_limit=1 << 24)
+    cfg = ReconConfig.from_jax_fields(dataclasses.asdict(JaxConfig(tuning=jt)))
+    if batched is None:
+        assert cfg.tuning is None and cfg.kernel_tuning() == KernelTuning(batched=True)
+    else:
+        assert cfg.tuning == KernelTuning(batched=batched)
+        assert cfg.kernel_tuning().batched is batched
+    hash(cfg)  # still a frozen, hashable config
+
+
+def test_batched_planes_match_pallas_win_kernel_batched():
+    """The planes path under tuning.batched (the static-unroll kernel's
+    CPU route: its plain version, the planes gridder) vs JAX's
+    `_win_kernel_batched` in interpret mode, float32, nxos 256, C 2, npe 12."""
+    from tron_tpu.config import KernelTuning as JaxTuning
+    from tron_tpu_torch.config import KernelTuning
+
+    nxos = 256
+    d = _data(8, 2, 12, nxos, signed=True)
+    ang = _angles(12, 20013)
+    jplanes = jgrid_pallas.to_sample_planes(jnp.asarray(d), nxos)
+    want = np.asarray(
+        jgrid_pallas.grid_radial2d_pallas_planes(
+            jplanes, jnp.asarray(ang), nxos, KW, BETA, pe_chunk=4, matmul_dtype="float32",
+            interpret=True, tuning=JaxTuning(batched=True),
+        )
+    )
+    planes = torch.from_numpy(np.asarray(jplanes))
+    launches = dict(grid_cuda.LAUNCH_COUNTS)
+    got = grid_cuda.grid_radial2d_planes(
+        planes, torch.from_numpy(ang), nxos, KW, BETA, tuning=KernelTuning(batched=True)
+    )
+    assert grid_cuda.LAUNCH_COUNTS == launches
+    assert nrmse(got.numpy(), want) <= 1e-5
+    loop = grid_cuda.grid_radial2d_planes(planes, torch.from_numpy(ang), nxos, KW, BETA)
+    np.testing.assert_array_equal(got.numpy(), loop.numpy())
+
+
+def test_launch_counts_per_kernel():
+    """One count per kernel; LAUNCHES reads their total, reset_launches
+    zeroes them."""
+    saved = dict(grid_cuda.LAUNCH_COUNTS)
+    try:
+        assert set(grid_cuda.LAUNCH_COUNTS) == set(grid_cuda.KERNELS) == {
+            "grid_radial2d", "grid_radial2d_batched", "grid_seg_radial2d"}
+        grid_cuda.LAUNCH_COUNTS.update(grid_radial2d=2, grid_seg_radial2d=3)
+        assert grid_cuda.LAUNCHES == 5
+        grid_cuda.reset_launches()
+        assert grid_cuda.LAUNCHES == 0
+        with pytest.raises(AttributeError):
+            grid_cuda.NO_SUCH_COUNT
+    finally:
+        grid_cuda.LAUNCH_COUNTS.update(saved)
+
+
+@pytest.mark.parametrize("nxos", [64, 100])
+def test_complex_entry_windowed_false_on_cpu(nxos):
+    """windowed=False takes the tile-culled plain gridder on a CPU tensor
+    (any nxos; JAX's `_seg_kernel` needs two 128-wide tiles)."""
+    d = torch.from_numpy(_data(9, 2, 10, nxos, signed=True))
+    ang = torch.from_numpy(_angles(10, 11))
+    culled = grid_cuda.grid_radial2d(d, ang, nxos, KW, BETA, windowed=False)
+    dense = grid_cuda.grid_radial2d(d, ang, nxos, KW, BETA)
+    assert nrmse(culled.numpy(), dense.numpy()) <= 1e-6
+    one = grid_cuda.grid_radial2d(d[0], ang, nxos, KW, BETA, windowed=False)
+    np.testing.assert_array_equal(one.numpy(), culled[0].numpy())

@@ -233,7 +233,7 @@ def test_cli_forward_and_cgnr_match_tron(tmp_path, indata, monkeypatch):
 
 # flags that later slices ported: they pass the parser and the run goes on
 # to read the (missing) input
-PORTED_FLAGS = {"-i", "forward mode"}
+PORTED_FLAGS = {"-i", "forward mode", "--stream"}
 
 
 @pytest.mark.parametrize(
@@ -263,7 +263,8 @@ def test_port_imports_without_jax():
         "import tron_tpu_torch, tron_tpu_torch.recon, tron_tpu_torch.cli\n"
         "import tron_tpu_torch.ops.grid_cuda, tron_tpu_torch._build, tron_tpu_torch.device\n"
         "import tron_tpu_torch.ops.degrid_cuda, tron_tpu_torch.solver, tron_tpu_torch.oracle\n"
-        "import tron_tpu_torch.phantom, tron_tpu_torch.metrics\n"
+        "import tron_tpu_torch.phantom, tron_tpu_torch.metrics, tron_tpu_torch.io.native\n"
+        "import tron_tpu_torch.ops.cull, tron_tpu_torch.tools.kbench\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tron_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
     )

@@ -1,10 +1,11 @@
 """tron_tpu_torch: the PyTorch/CUDA port of tron_tpu (the JAX/TPU package
 beside it, which stays the reference).
 
-The golden-angle sliding-window adjoint recon, the forward operator and the
-CGNR solver run here, with adjoint gridding and forward degridding in
-hand-written CUDA kernels (`csrc/grid_radial2d.cu`, `csrc/degrid_radial2d.cu`)
-and the rest in plain torch.  Module names follow tron_tpu's, so each
+The golden-angle sliding-window adjoint recon (in memory or streamed from
+disk), the forward operator and the CGNR solver run here, with adjoint
+gridding and forward degridding in hand-written CUDA kernels (`csrc/`: the
+loop gridder, its static-unroll variant, the tile-culled gridder and the
+degridder) and the rest in plain torch.  Module names follow tron_tpu's, so each
 module's counterpart is the file of the same name there.  This package
 imports torch and never JAX.
 """

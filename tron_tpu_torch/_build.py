@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels (`csrc/*.cu`, with the
 shared device code of `csrc/*.cuh`).
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+The sources are compiled with nvcc, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/tron_tpu_torch/libtron_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas=-v -c -o <obj> csrc/<name>.cu                  (each source)
+    nvcc -shared -o build/tron_tpu_torch/libtron_torch_<hash>.so <objs>
 
 The build runs on first use, when a CUDA tensor first reaches a kernel
 wrapper, so importing the package never needs nvcc.  The library lands in
@@ -29,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "tron_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -63,6 +65,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp,
     ]
     lib.tron_grid_radial2d_planes.restype = ci
+    lib.tron_grid_radial2d_batched_planes.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, ci, vp,
+    ]
+    lib.tron_grid_radial2d_batched_planes.restype = ci
+    lib.tron_grid_seg_radial2d_planes.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, cf, vp,
+    ]
+    lib.tron_grid_seg_radial2d_planes.restype = ci
     lib.tron_degrid_radial2d_planes.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, vp,
     ]
@@ -84,15 +94,34 @@ def load() -> Built:
     if not out.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        nvcc = _nvcc()
+        objs = [out.with_suffix(f".{os.getpid()}.{src.stem}.o") for src in sources]
+        cmds = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)
+        ]
+        try:
+            procs = [
+                subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for c in cmds
+            ]
+            outs = [p.communicate()[0] for p in procs]
+            log = "".join(outs)
+            for cmd, p, o in zip(cmds, procs, outs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{o}")
+            link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"link failed ({proc.returncode}): {' '.join(link)}\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        finally:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
-        os.replace(tmp, out)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(out))
     _declare(lib)
     return Built(lib, out, log)

@@ -3,6 +3,7 @@
 from tron_tpu_torch.io.ra import (
     RA_MAGIC,
     RaHeader,
+    RaWriter,
     dtype_to_eltype,
     eltype_to_dtype,
     ra_query,
@@ -13,6 +14,7 @@ from tron_tpu_torch.io.ra import (
 __all__ = [
     "RA_MAGIC",
     "RaHeader",
+    "RaWriter",
     "dtype_to_eltype",
     "eltype_to_dtype",
     "ra_query",

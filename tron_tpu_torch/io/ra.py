@@ -1,5 +1,7 @@
 """RawArray (.ra) file format, numpy only (counterpart of `tron_tpu/io/ra.py`;
-copied, since importing any `tron_tpu` module imports JAX).
+copied, since importing any `tron_tpu` module imports JAX).  Region writes
+use ``os.pwrite``: the JAX package's C++ helper (`tron_tpu/_native/`) is
+not ported (ROADMAP A18).
 
 Byte-identical to the spec of the reference implementation
 (`src/ra.h:38-72`): a little-endian stream of u64 fields
@@ -171,3 +173,78 @@ def ra_write(
         f.write(header.tobytes())
         payload.tofile(f)
     os.replace(tmp, path)
+
+
+def pwrite_all(fd: int, buf: np.ndarray, pos: int) -> None:
+    """``os.pwrite`` all of ``buf`` at byte ``pos`` of ``fd`` (one call may
+    write short: Linux caps it at ~2 GiB)."""
+    view = memoryview(np.ascontiguousarray(buf)).cast("B")
+    while len(view):
+        n = os.pwrite(fd, view, pos)
+        view = view[n:]
+        pos += n
+
+
+class RaWriter:
+    """Incremental .ra writer: header up front, data landed by region
+    (counterpart of `tron_tpu/io/ra.py:189-266`).
+
+    The output half of the streaming recon driver: each reconstructed frame
+    block lands in its region of the output file while the card computes
+    the next block, the role of the reference's pinned-memory async D2H and
+    per-frame output copies (`src/tron.cu:767-781`).  Frames are the
+    slowest-varying .ra dimension (dims[0] is fastest), so each frame is
+    one contiguous region.
+
+    Writes go to a temp file; :meth:`close` atomically replaces ``path``
+    (the contract of :func:`ra_write`), :meth:`abort` removes the temp.
+    """
+
+    def __init__(self, path: str | os.PathLike, dims: tuple[int, ...], dtype):
+        self.path = os.fspath(path)
+        self.tmp = f"{self.path}.tmp.{os.getpid()}"
+        self.dtype = np.dtype(dtype)
+        if self.dtype.byteorder == ">":
+            raise ValueError("RaWriter writes little-endian files only")
+        eltype, elbyte = dtype_to_eltype(self.dtype)
+        self.dims = tuple(int(d) for d in dims)
+        self.size = int(np.prod(self.dims)) * elbyte
+        header = np.array(
+            [RA_MAGIC, 0, eltype, elbyte, self.size, len(self.dims), *self.dims],
+            dtype="<u8",
+        )
+        self._data0 = header.nbytes
+        self._fd = os.open(self.tmp, os.O_RDWR | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.write(self._fd, header.tobytes())
+        os.truncate(self._fd, self._data0 + self.size)
+
+    def write_at(self, elem_offset: int, arr: np.ndarray) -> None:
+        """Land ``arr`` (already in on-disk element order) at element offset
+        ``elem_offset`` of the data payload."""
+        buf = np.ascontiguousarray(arr, dtype=self.dtype)
+        off = int(elem_offset) * self.dtype.itemsize
+        if off + buf.nbytes > self.size:
+            raise ValueError(
+                f"region [{off}, {off + buf.nbytes}) exceeds payload {self.size}"
+            )
+        pwrite_all(self._fd, buf, self._data0 + off)
+
+    def close(self) -> None:
+        os.close(self._fd)
+        os.replace(self.tmp, self.path)
+
+    def abort(self) -> None:
+        os.close(self._fd)
+        try:
+            os.unlink(self.tmp)
+        except FileNotFoundError:
+            pass
+
+    def __enter__(self) -> "RaWriter":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()

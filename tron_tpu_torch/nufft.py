@@ -57,7 +57,8 @@ def _kernel_backend(cfg: ReconConfig, device: torch.device) -> bool:
 def _grid_backend(cfg: ReconConfig, device: torch.device):
     if _kernel_backend(cfg, device):
         return functools.partial(
-            grid_cuda.grid_radial2d, matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk
+            grid_cuda.grid_radial2d, matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk,
+            tuning=cfg.kernel_tuning(),
         )
     return functools.partial(grid_radial2d, pe_chunk=cfg.pe_chunk)
 
@@ -113,7 +114,7 @@ def nufft_adjoint_exact(
     if _kernel_backend(cfg, data.device):
         kgrid = grid_cuda.grid_radial2d_exact(
             flat, angles, nxos, cfg.kernwidth, beta,
-            matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk,
+            matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk, tuning=cfg.kernel_tuning(),
         )
     else:
         kgrid = grid_radial2d(
@@ -151,7 +152,8 @@ def nufft_forward(
     batch = kgrid.shape[:-2]
     flat = kgrid.reshape((-1,) + tuple(kgrid.shape[-2:]))
     out = degrid_cuda.degrid_radial2d(
-        flat, angles, nro, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype, wrap=wrap
+        flat, angles, nro, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype, wrap=wrap,
+        tuning=cfg.kernel_tuning(),
     )
     return out.reshape(tuple(batch) + tuple(out.shape[-2:]))
 
@@ -174,6 +176,7 @@ def nufft_adjoint_planes(
     n = int(round(nxos / cfg.gridos))
     beta = kb_beta(cfg.kernwidth, cfg.gridos, cfg.beatty)
     kgrid = grid_cuda.grid_radial2d_planes(
-        planes, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype
+        planes, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype,
+        tuning=cfg.kernel_tuning(),
     )
     return _adjoint_epilogue(kgrid, n, cfg, beta)

@@ -12,7 +12,8 @@ wrap itself, so the JAX package's dense fallback for untileable grids and
 its wrap-edge patch (`nufft._patch_degrid_wrap_edges`) have no counterpart.
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
-card), so a run can show that its main path went through the kernel.
+card), so a run can show that its main path went through the kernel;
+``reset_launches()`` zeroes it.
 """
 
 from __future__ import annotations
@@ -28,6 +29,11 @@ LAUNCHES = 0
 
 MAX_OFF = 8  # neighbours per axis the kernel holds: int(2*kernwidth) + 1
 _INT_MAX = 2**31 - 1
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
 
 
 def to_grid_planes(kgrid: torch.Tensor) -> torch.Tensor:
@@ -73,16 +79,22 @@ def degrid_radial2d(
     beta: float,
     matmul_dtype: str = "float32",
     wrap: bool = True,
+    tuning=None,
 ) -> torch.Tensor:
     """Forward degridding (counterpart of ``degrid_radial2d_pallas``, with
     the wrap that the Pallas kernel leaves to a patch): kgrid (C, n, n) or
     (n, n) complex -> samples (C, npe, nro) (or (npe, nro)) complex64.
     ``matmul_dtype`` names the JAX precision class; the kernel computes in
-    fp32 for every class."""
+    fp32 for every class.  ``tuning.batched`` launches the same kernel: the
+    Pallas kernel's batched mode is a static unroll over its neighbours
+    (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls its noff^2
+    neighbours statically already."""
     if matmul_dtype not in MATMUL_DTYPES:
         raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
     if kgrid.dim() == 2:
-        return degrid_radial2d(kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap)[0]
+        return degrid_radial2d(
+            kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap, tuning
+        )[0]
     if kgrid.device.type == "cpu":
         return degrid_radial2d_plain(kgrid, angles, nro, kernwidth, beta, wrap=wrap)
     if kgrid.device.type != "cuda":

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from tron_tpu_torch.kernels.kb import kb_kernel
+from tron_tpu_torch.ops import cull
 from tron_tpu_torch.ops.degrid import lattice_radii
 
 
@@ -49,23 +50,28 @@ def _grid_dense(
     kernwidth: float,
     beta: float,
     pe_chunk: int,
+    window: tuple[slice, slice] | None = None,
+    npe_scale: int | None = None,
 ) -> torch.Tensor:
     """Real sample planes s (npe, nR, K) at radii rr (nR,) -> (K, nxos, nxos)
-    f32 grids, scaled by 1/(nxos*npe)."""
+    f32 grids, scaled by 1/(nxos*npe).  ``window`` = (rows, columns) slices
+    restricts the output to that block of the grid; ``npe_scale`` replaces
+    npe in the scale (a tile's hit spokes carry the frame's scale)."""
     npe, nR, K = s.shape
-    X = (torch.arange(nxos, device=s.device) - nxos // 2).to(torch.float32)
+    coord = (torch.arange(nxos, device=s.device) - nxos // 2).to(torch.float32)
+    Y, X = (coord, coord) if window is None else (coord[window[0]], coord[window[1]])
     ct = torch.cos(angles.to(torch.float32))
     st = torch.sin(angles.to(torch.float32))
-    acc = s.new_zeros((K, nxos, nxos))
+    acc = s.new_zeros((K, Y.shape[0], X.shape[0]))
     for p0 in range(0, npe, pe_chunk):
         sl = slice(p0, min(p0 + pe_chunk, npe))
         kx = rr[None, :, None] * ct[sl, None, None]            # (P, nR, 1)
         ky = rr[None, :, None] * st[sl, None, None]
         A = kb_kernel(kx - X, kernwidth, beta)                  # (P, nR, nx)
-        B = kb_kernel(ky - X, kernwidth, beta)                  # (P, nR, ny)
+        B = kb_kernel(ky - Y, kernwidth, beta)                  # (P, nR, ny)
         U = s[sl].permute(2, 0, 1)[..., None] * B               # (K, P, nR, ny)
-        acc += U.reshape(K, -1, nxos).transpose(1, 2) @ A.reshape(-1, nxos)
-    return acc * (1.0 / (nxos * npe))
+        acc += U.reshape(K, -1, Y.shape[0]).transpose(1, 2) @ A.reshape(-1, X.shape[0])
+    return acc * (1.0 / (nxos * (npe if npe_scale is None else npe_scale)))
 
 
 def grid_radial2d(
@@ -118,5 +124,46 @@ def grid_radial2d_planes_plain(
     npe, nR, K = planes.shape
     rr = (torch.arange(nR, device=planes.device) - nxos // 2).to(torch.float32)
     g = _grid_dense(planes[:, 1:], rr[1:], angles, nxos, kernwidth, beta, pe_chunk)
-    g = g.reshape(K // 2, 2, nxos, nxos).permute(0, 2, 3, 1).contiguous()
-    return torch.view_as_complex(g)
+    return _complex_grids(g)
+
+
+def _complex_grids(g: torch.Tensor) -> torch.Tensor:
+    """(2C, n, n) real grids, channel 2c+1 coil c's imaginary part ->
+    (C, n, n) complex64."""
+    K, ny, nx = g.shape
+    return torch.view_as_complex(g.reshape(K // 2, 2, ny, nx).permute(0, 2, 3, 1).contiguous())
+
+
+def grid_radial2d_planes_culled(
+    planes: torch.Tensor,
+    angles: torch.Tensor,
+    nxos: int,
+    kernwidth: float,
+    beta: float,
+    rad: torch.Tensor | None = None,
+    tile: int = cull.TILE,
+    pe_chunk: int = 64,
+) -> torch.Tensor:
+    """The planes gridder applied tile by tile to each tile's hit spokes
+    (`ops/cull.py`): the plain version of the tile-culled CUDA kernel
+    (`csrc/grid_seg_radial2d.cu`, the port of B4 `_seg_kernel`).  Same
+    contract as ``grid_radial2d_planes_plain``; ``rad`` None grids integer
+    radii (nR == nxos), else row u sits at radius rad[u] (the exact
+    lattice).  Row 0 is never gridded."""
+    npe, nR, K = planes.shape
+    if rad is None:
+        rad = (torch.arange(nR, device=planes.device) - nxos // 2).to(torch.float32)
+    counts, lists = cull.hit_lists(cull.tile_hits(angles, nxos, kernwidth, tile))
+    counts = counts.tolist()  # one host read for all tiles
+    g = planes.new_zeros((K, nxos, nxos))
+    for i, y0 in enumerate(range(0, nxos, tile)):
+        for j, x0 in enumerate(range(0, nxos, tile)):
+            if counts[i][j] == 0:
+                continue
+            hit = lists[i, j, : counts[i][j]]
+            win = (slice(y0, y0 + tile), slice(x0, x0 + tile))
+            g[:, win[0], win[1]] = _grid_dense(
+                planes[hit, 1:], rad[1:], angles[hit], nxos, kernwidth, beta, pe_chunk,
+                window=win, npe_scale=npe,
+            )
+    return _complex_grids(g)

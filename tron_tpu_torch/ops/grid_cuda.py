@@ -1,30 +1,91 @@
 """Adjoint gridding on the card (counterpart of `tron_tpu/ops/grid_pallas.py`).
 
-The wrappers here launch the hand-written kernel of
-`csrc/grid_radial2d.cu`, which replaces the Pallas kernels `_win_kernel`
-(in its integer-radius and its exact-lattice modes) and `_grid_kernel`.  A
-CUDA tensor launches the kernel or raises; a CPU tensor takes the kernel's
-plain version (`ops/grid.py`), and only because it lies on the CPU.  A
-kernel failure is never caught to fall back.
+The wrappers here launch one of three hand-written kernels, all with the
+contract of `csrc/grid_radial2d.cuh`:
 
-``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
-card), so a run can show that its main path went through the kernel.
+- ``grid_radial2d`` (`csrc/grid_radial2d.cu`): the loop kernel, which
+  replaces the Pallas kernels `_win_kernel` (in its integer-radius and its
+  exact-lattice modes) and `_grid_kernel`; the default (``windowed=True``);
+- ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): its
+  static-unroll variant, which replaces `_win_kernel_batched`, taken when
+  ``tuning.batched`` is set (``KernelTuning(batched=True)``,
+  ``TRON_BATCHED=1``); bitwise equal to the loop kernel;
+- ``grid_seg_radial2d`` (`csrc/grid_seg_radial2d.cu`): the tile-culled
+  gather, which replaces `_seg_kernel`, taken with ``windowed=False``;
+  bitwise equal to the loop kernel.
+
+A CUDA tensor launches a kernel or raises; a CPU tensor takes the kernels'
+plain version (`ops/grid.py`: the planes gridder, or for ``windowed=False``
+the same gridder applied to each tile's culled spokes), and only because it
+lies on the CPU.  A kernel failure is never caught to fall back.
+
+``LAUNCH_COUNTS`` counts launches per kernel (one per wrapper call that
+reached the card), so a run can show which kernel its main path went
+through; ``LAUNCHES`` reads their total and ``reset_launches()`` zeroes
+them.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tron_tpu_torch import _build
+from tron_tpu_torch.ops import cull
 from tron_tpu_torch.ops.degrid import lattice_radii
-from tron_tpu_torch.ops.grid import _radius_map, drop_readout0, grid_radial2d_planes_plain
+from tron_tpu_torch.ops.grid import (
+    _radius_map,
+    drop_readout0,
+    grid_radial2d_planes_culled,
+    grid_radial2d_planes_plain,
+)
 from tron_tpu_torch.ops.grid import grid_radial2d as grid_radial2d_plain
 
-LAUNCHES = 0
+KERNELS = ("grid_radial2d", "grid_radial2d_batched", "grid_seg_radial2d")
+LAUNCH_COUNTS = dict.fromkeys(KERNELS, 0)
 
 # Precision classes of the JAX gridder.  They exist for the TPU's bf16 MXU;
-# the CUDA kernel runs fp32 FMA for every one of them.
+# the CUDA kernels run fp32 FMA for every one of them.
 MATMUL_DTYPES = ("bfloat16", "bf16x2", "bf16x3", "float32")
+
+# Row-slot counts the static-unroll kernel is built for
+# (csrc/grid_radial2d_batched.cu).
+NSLOTS = (10, 12, 16)
+
+
+def __getattr__(name):
+    if name == "LAUNCHES":  # the total over the three kernels
+        return sum(LAUNCH_COUNTS.values())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def reset_launches() -> None:
+    for k in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[k] = 0
+
+
+def row_bound(kernwidth: float, rows_per_unit: float = 1.0) -> int:
+    """The most rows the gridding kernels walk for one (pixel, spoke): the
+    band where |r cos t - X| < kw and |r sin t - Y| < kw is shorter than
+    2*sqrt(2)*kw in radius (rows_per_unit = nR/nxos rows per unit radius
+    on the exact lattice), plus 2 for the floor/ceil of its ends and 2 for
+    the one-row widening on each side, plus 1 to count both ends.  The 1e-2
+    covers fp32 rounding of the band's ends."""
+    return math.floor(2.0 * math.sqrt(2.0) * kernwidth * rows_per_unit + 1e-2) + 5
+
+
+def pick_nslot(kernwidth: float, rows_per_unit: float = 1.0) -> int:
+    """The smallest built row-slot count that covers ``row_bound``; raises
+    when none does, so no row is ever dropped."""
+    need = row_bound(kernwidth, rows_per_unit)
+    for n in NSLOTS:
+        if n >= need:
+            return n
+    raise ValueError(
+        f"the batched gridding kernel needs {need} row slots at kernwidth {kernwidth} "
+        f"and {rows_per_unit:g} rows per unit radius; it is built for at most {NSLOTS[-1]}"
+    )
 
 
 def _planes(ds: torch.Tensor) -> torch.Tensor:
@@ -77,6 +138,11 @@ def _check_planes(
         raise ValueError(f"angles on {angles.device}, planes on {planes.device}")
 
 
+def _check_dtype(matmul_dtype: str) -> None:
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+
+
 def grid_radial2d_planes(
     planes: torch.Tensor,
     angles: torch.Tensor,
@@ -84,38 +150,52 @@ def grid_radial2d_planes(
     kernwidth: float,
     beta: float,
     matmul_dtype: str = "float32",
+    windowed: bool = True,
+    tuning=None,
 ) -> torch.Tensor:
     """Adjoint gridding from sample planes (npe, nxos, 2C) f32 (see
     to_sample_planes).  Returns (C, nxos, nxos) complex64 scaled by
     1/(nxos*npe).  ``matmul_dtype`` names the JAX precision class; the
-    kernel computes in fp32 for every class."""
-    if matmul_dtype not in MATMUL_DTYPES:
-        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+    kernels compute in fp32 for every class.  ``windowed=False`` takes the
+    tile-culled kernel; ``tuning.batched`` the static-unroll one."""
+    _check_dtype(matmul_dtype)
     if planes.device.type == "cpu":
+        if not windowed:
+            return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta)
         return grid_radial2d_planes_plain(planes, angles, nxos, kernwidth, beta)
     if planes.device.type != "cuda":
         raise ValueError(f"no gridding kernel for device {planes.device}")
     _check_planes(planes, angles, nxos)
-    return _launch(planes, angles, nxos, kernwidth, beta, None)
+    return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning)
 
 
-def _launch(planes, angles, nxos, kernwidth, beta, rad) -> torch.Tensor:
+def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> torch.Tensor:
     """rad None: integer radii (nR == nxos); else the (nR,) row radii."""
-    global LAUNCHES
     built = _build.load()
     npe, nR, K = planes.shape
     ct = torch.cos(angles)
     st = torch.sin(angles)
     out = torch.empty((K // 2, nxos, nxos), dtype=torch.complex64, device=planes.device)
-    with torch.cuda.device(planes.device):
-        code = built.lib.tron_grid_radial2d_planes(
-            planes.data_ptr(), ct.data_ptr(), st.data_ptr(),
-            None if rad is None else rad.data_ptr(), out.data_ptr(),
-            npe, nR, nxos, K, float(kernwidth), float(beta), 1.0 / (nxos * npe),
-            torch.cuda.current_stream(planes.device).cuda_stream,
+    args = (
+        planes.data_ptr(), ct.data_ptr(), st.data_ptr(),
+        None if rad is None else rad.data_ptr(), out.data_ptr(),
+        npe, nR, nxos, K, float(kernwidth), float(beta), 1.0 / (nxos * npe),
+    )
+    if not windowed:
+        name, fn, extra = "grid_seg_radial2d", built.lib.tron_grid_seg_radial2d_planes, (
+            cull.reach(kernwidth),
         )
-    _build.check(built.lib, code, "grid_radial2d kernel")
-    LAUNCHES += 1
+    elif tuning is not None and tuning.batched:
+        nslot = pick_nslot(kernwidth, 1.0 if rad is None else nR / nxos)
+        name, fn, extra = "grid_radial2d_batched", built.lib.tron_grid_radial2d_batched_planes, (
+            nslot,
+        )
+    else:
+        name, fn, extra = "grid_radial2d", built.lib.tron_grid_radial2d_planes, ()
+    with torch.cuda.device(planes.device):
+        code = fn(*args, *extra, torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.check(built.lib, code, f"{name} kernel")
+    LAUNCH_COUNTS[name] += 1
     return out
 
 
@@ -127,6 +207,8 @@ def grid_radial2d(
     beta: float,
     matmul_dtype: str = "float32",
     pe_chunk: int = 8,
+    windowed: bool = True,
+    tuning=None,
 ) -> torch.Tensor:
     """Adjoint gridding, complex in and out (counterpart of
     ``grid_radial2d_pallas``).  data: (C, npe, nro) or (npe, nro) complex;
@@ -134,14 +216,15 @@ def grid_radial2d(
     steps the plain version only."""
     if data.dim() == 2:
         return grid_radial2d(
-            data[None], angles, nxos, kernwidth, beta, matmul_dtype, pe_chunk
+            data[None], angles, nxos, kernwidth, beta, matmul_dtype, pe_chunk, windowed,
+            tuning,
         )[0]
-    if data.device.type == "cpu":
-        if matmul_dtype not in MATMUL_DTYPES:
-            raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+    if data.device.type == "cpu" and windowed:
+        _check_dtype(matmul_dtype)
         return grid_radial2d_plain(data, angles, nxos, kernwidth, beta, pe_chunk=pe_chunk)
     return grid_radial2d_planes(
-        to_sample_planes(data, nxos), angles, nxos, kernwidth, beta, matmul_dtype
+        to_sample_planes(data, nxos), angles, nxos, kernwidth, beta, matmul_dtype,
+        windowed, tuning,
     )
 
 
@@ -153,6 +236,8 @@ def grid_radial2d_exact(
     beta: float,
     matmul_dtype: str = "float32",
     pe_chunk: int = 8,
+    windowed: bool = True,
+    tuning=None,
 ) -> torch.Tensor:
     """Exact-lattice adjoint gridding (counterpart of
     ``grid_radial2d_pallas_exact``): every readout u grids at its exact
@@ -161,20 +246,20 @@ def grid_radial2d_exact(
     degridding kernel at any gridos.  Readout 0 is never gridded.  data:
     (C, npe, nro) complex; returns (C, nxos, nxos) complex64 scaled by
     1/(nxos*npe)."""
-    if matmul_dtype not in MATMUL_DTYPES:
-        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+    _check_dtype(matmul_dtype)
     nro = data.shape[-1]
-    if data.device.type == "cpu":
+    if data.device.type == "cpu" and windowed:
         return grid_radial2d_plain(
             drop_readout0(data), angles, nxos, kernwidth, beta, pe_chunk=pe_chunk,
             raw_rows=True,
         )
-    if data.device.type != "cuda":
+    if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no gridding kernel for device {data.device}")
     if data.dim() != 3:
         raise ValueError(f"data must be (C, npe, nro), got {tuple(data.shape)}")
     planes = _planes(data)
+    rad = lattice_radii(nro, nxos, data.device)
+    if data.device.type == "cpu":
+        return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta, rad=rad)
     _check_planes(planes, angles, nxos, exact=True)
-    return _launch(
-        planes, angles, nxos, kernwidth, beta, lattice_radii(nro, nxos, data.device)
-    )
+    return _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning)

@@ -167,9 +167,12 @@ def recon_frames_incremental(
         src = grid_cuda.to_sample_planes(dw, nxos)   # (npe1, nxos, 2C)
         spoke_axis = 0
 
+        tuning = cfg.kernel_tuning()
+
         def gridw(win, angles):
             return grid_cuda.grid_radial2d_planes(
-                win, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype
+                win, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype,
+                tuning=tuning,
             )
 
     else:
@@ -273,6 +276,219 @@ def recon_radial2d(
         return _fetch_host(out, half_readback)
     out = frames_fn(d, cfg, work, slide, nz)  # (nz, n, n)
     return _fetch_host(out, half_readback)[:, None]
+
+
+def _stream_coil_basis(path, npe1: int, ncomp: int, chunk: int = 4096) -> np.ndarray:
+    """Global SVD coil-compression basis from a windowed disk pass
+    (counterpart of `tron_tpu/recon.py:351-375`).
+
+    Accumulates the whole-acquisition coil Gram G_t = X_t X_t^H per
+    repetition in chunks of profiles (the file never fully enters RAM),
+    then takes the top-``ncomp`` eigenvectors: the Buehrer/Huang SCC basis.
+    Returns (nt, nc, ncomp) complex64."""
+    from tron_tpu_torch.io.native import ra_read_profiles
+
+    G = None
+    for pe0 in range(0, npe1, chunk):
+        blk = ra_read_profiles(path, pe0, min(chunk, npe1 - pe0))
+        nc, nt = blk.shape[:2]
+        X = blk.transpose(1, 0, 2, 3).reshape(nt, nc, -1)
+        # per-chunk Gram in c64 BLAS, accumulated in c128
+        g = np.einsum("tcm,tdm->tcd", X, X.conj()).astype(np.complex128)
+        G = g if G is None else G + g
+    basis = np.empty((G.shape[0], G.shape[1], ncomp), np.complex64)
+    for t in range(G.shape[0]):
+        _, vecs = np.linalg.eigh(G[t])          # ascending eigenvalues
+        basis[t] = vecs[:, ::-1][:, :ncomp]     # top-ncomp components
+    return basis
+
+
+class _Uploader:
+    """Host -> device copies of the streamed blocks.  On the card: two
+    pinned host buffers used in turn, each copy on a dedicated stream with
+    an event the compute stream waits on, and a buffer refilled only after
+    its previous copy's event has completed (the reference's NSTREAMS=2
+    pinned async H2D, `src/tron.cu:734-781`).  On the CPU: a plain tensor."""
+
+    def __init__(self, device: torch.device, shape: tuple[int, ...]):
+        self.device = device
+        if device.type == "cuda":
+            self.pinned = [
+                torch.empty(shape, dtype=torch.complex64, pin_memory=True) for _ in range(2)
+            ]
+            self.copied = [None, None]
+            self.stream = torch.cuda.Stream(device)
+
+    def __call__(self, i: int, arr: np.ndarray):
+        """Block ``i`` -> (device tensor, event or None)."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.complex64)), None
+        k = i % 2
+        if self.copied[k] is not None:
+            self.copied[k].synchronize()
+        self.pinned[k].numpy()[...] = arr
+        with torch.cuda.stream(self.stream):
+            d = self.pinned[k].to(self.device, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        self.copied[k] = ev
+        return d, ev
+
+
+def _download(dev: torch.Tensor, ready, stream) -> np.ndarray:
+    """Device block -> host array.  On the card the copy runs on ``stream``
+    after the ``ready`` event, into a pinned buffer that is synchronised
+    before numpy reads it."""
+    if dev.device.type != "cuda":
+        return dev.numpy()
+    host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+    with torch.cuda.stream(stream):
+        stream.wait_event(ready)
+        host.copy_(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return host.numpy()
+
+
+def recon_radial2d_streaming(
+    path,
+    cfg: ReconConfig,
+    batch_frames: int = 64,
+    mesh=None,
+    writer=None,
+    half: bool = False,
+    *,
+    device: torch.device | str | None = None,
+) -> np.ndarray | None:
+    """Sliding-window adjoint recon streamed from disk (counterpart of
+    `tron_tpu/recon.py:378-536`), on ``device`` (default: the card,
+    ``resolve_device()``).
+
+    A three-stage overlap, the reference's NSTREAMS=2 stream pool with
+    pinned-memory async copies (`src/tron.cu:734-781`):
+
+      * a LOADER thread reads the next block's profile window from disk
+        (``io.native.ra_read_profiles``: the acquisition never fully enters
+        host RAM), projects it onto the coil-compression basis if any, and
+        uploads it from a pinned buffer on its own copy stream;
+      * the main thread makes the compute stream wait for that copy and
+        dispatches the block's frames (``recon_frames``, or
+        ``recon_frames_incremental`` when applicable; CGNR with ``niter``);
+      * a READER thread copies each finished block back into pinned host
+        memory after the block's compute event and hands it to the sink.
+
+    ``writer(z0, block)``: optional sink called in block order with the host
+    images of frames [z0, z0+bf); the CLI lands each block in its region of
+    the output .ra (``io.RaWriter``).  Tail blocks realign to nz - bf, so a
+    later call may rewrite earlier frames.  When given, returns None.
+
+    ``half=True`` casts the images to float16 on the card before readback;
+    blocks are then float16 re/im planes on a leading axis of 2, the pair
+    convention of the ``--half`` output.  Block shapes: (bf, nt, n, n), or
+    (bf, nt, nc, n, n) for coil_combine='none'; with half, (2, bf, nt,
+    [nc,] n, n).  Inputs may be complex, plain float or float16 re/im-pair
+    files.  Coil compression (cfg.coil_compress) runs a disk-only first
+    pass for the global virtual-coil basis (``_stream_coil_basis``), then
+    projects each block on the host before upload.
+
+    Without ``writer``, returns all frames stacked: (nz, nt, [nc,] n, n)
+    complex64, or (2, nz, nt, [nc,] n, n) float16 when half.  ``mesh``
+    (frame-sharded streaming) is not ported yet.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tron_tpu_torch.device import resolve_device
+    from tron_tpu_torch.io import ra_query
+    from tron_tpu_torch.io.native import ra_read_profiles, radial_dims
+
+    if mesh is not None:
+        _unported("mesh (frame-sharded streaming)", "A17")
+    device = resolve_device() if device is None else torch.device(device)
+    hdr = ra_query(path)
+    nc, nt, nro, npe1, npe2, _pair = radial_dims(hdr)
+    if npe2 != 1:
+        raise ValueError("streaming recon supports npe2 == 1 (use -3 for stacks)")
+    if not cfg.adjoint or cfg.koosh:
+        raise ValueError("streaming recon is adjoint (-a), non-koosh only")
+    _check_ported(cfg)
+    basis = None
+    if 0 < cfg.coil_compress < nc:
+        # a per-block basis would change the virtual coils across blocks, so
+        # one disk-only pass fixes the global basis before any upload
+        basis = _stream_coil_basis(path, npe1, cfg.coil_compress)
+    nv = nc if basis is None else basis.shape[-1]
+    work, slide, nz = cfg.frame_geometry(nro, npe1)
+    bf = min(batch_frames, nz)
+    # the tail block realigns to nz - bf (every block has one shape)
+    z0s = [min(z0, nz - bf) for z0 in range(0, nz, bf)]
+    npe_blk = work + (bf - 1) * slide
+    frames_fn = (
+        recon_frames_incremental
+        if cfg.incremental and incremental_applicable(cfg, work, slide, bf)
+        else recon_frames
+    )
+    upload = _Uploader(device, (nt, nv, npe_blk, nro))
+    d2h = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def load(i):
+        """Disk window -> device (loader thread)."""
+        pe0 = z0s[i] * slide
+        blk = ra_read_profiles(path, pe0, npe_blk)      # (nc, nt, nro, npe)
+        if basis is not None:
+            # per-repetition projection onto the global virtual-coil basis
+            arr = np.einsum("tck,tcpr->tkpr", basis.conj(), blk.transpose(1, 0, 3, 2))
+        else:
+            arr = blk.transpose(1, 0, 3, 2)             # (nt, nc, npe, nro)
+        return (*upload(i, arr), pe0)
+
+    def recon_block(d, pe0) -> torch.Tensor:
+        """All repetitions of one block, stacked on the card."""
+        outs = [frames_fn(d[t], cfg, work, slide, bf, pe0) for t in range(nt)]
+        if half:
+            return torch.stack([torch.stack([o.real, o.imag]) for o in outs], dim=2).to(
+                torch.float16
+            )
+        return torch.stack(outs, dim=1)
+
+    outs = None if writer is not None else [None] * nz
+
+    def sink(z0, dev, ready):
+        """Device block -> host -> writer or outs (reader thread, block order)."""
+        blk = _download(dev, ready, d2h)
+        if writer is not None:
+            writer(z0, blk)
+            return
+        for i in range(bf):
+            # the frame axis is axis 0 (plain) or axis 1 (half's leading planes)
+            outs[z0 + i] = blk[:, i].copy() if half else blk[i].copy()
+
+    with ThreadPoolExecutor(max_workers=1) as loader, ThreadPoolExecutor(max_workers=1) as reader:
+        fut = loader.submit(load, 0)
+        pending = []
+        for i, z0 in enumerate(z0s):
+            d, copied, pe0 = fut.result()
+            if i + 1 < len(z0s):
+                fut = loader.submit(load, i + 1)
+            ready = None
+            if copied is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(copied)
+                d.record_stream(compute)  # d was allocated on the copy stream
+            out = recon_block(d, pe0)
+            del d
+            if device.type == "cuda":
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(device))
+            pending.append(reader.submit(sink, z0, out, ready))
+            del out
+            while len(pending) > 1:
+                pending.pop(0).result()
+        while pending:
+            pending.pop(0).result()
+    if writer is not None:
+        return None
+    return np.stack(outs, axis=1 if half else 0)
 
 
 def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarray:
