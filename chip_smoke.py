@@ -6,13 +6,15 @@
 Phases, one line each (any failure raises and exits non-zero):
   1 env      card name and power limit, torch and CUDA versions
   2 build    nvcc builds csrc/*.cu for sm_90a into build/tron_tpu_torch/
-  3 kernel   the CUDA gridding kernel vs its plain torch version on the card
+  3 kernel   the CUDA gridding kernel (the tile kernel) vs its plain torch
+             version on the card
   4 main     whole-body golden-angle sliding-window recon (6 coils, nro 512,
              204 spokes per frame, slide 21, 956 frames of 256^2) through
              recon_radial2d, direct and incremental, with launch counts
   5 golden   the committed JAX-computed golden images
   6 cli      tron-torch -a -G -u 0.4 -d 21 on a .ra fixture
-  7 timing   throughput (CUDA events) and kernel vs plain ms per frame
+  7 timing   throughput (CUDA events), kernel vs plain ms per frame and the
+             tile kernel's four passes in the profiler
   8 degrid   the CUDA degridding kernel vs its plain torch version (wrap and
              clip; nxos 64-640, 1-10 coils, gridos 1.5/2/2.5, an odd nro)
   9 exact    the gridding kernel's exact lattice vs the plain raw-rows gridder
@@ -24,13 +26,14 @@ Phases, one line each (any failure raises and exits non-zero):
  13 solver   6-coil birdcage Shepp-Logan 256^2: CGNR beats the adjoint and
              its data residual falls
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
- 15 timing2  degrid kernel vs plain ms, forward Msamples/s, CGNR ms per frame
- 16 seg      the tile-culled gridding kernel (windowed=False) vs its plain
-             version and bit for bit vs the loop kernel (nxos 64-640, C 1-10,
-             golden and linear-half angles, signed data, both lattices);
-             timed beside the loop kernel on a whole-body frame
- 17 batched  the static-unroll gridding kernel (tuning.batched) bit for bit
-             vs the loop kernel (both lattices, kw 1.5/2/3); timed
+ 15 timing2  degrid kernel vs plain ms (the wrapper, and the bare C call),
+             forward Msamples/s, CGNR ms per frame
+ 16 seg      the tile-culled gridding kernel (windowed=False) bit for bit vs
+             the static-unroll one, the tile kernel within 1e-6 of it, each
+             vs its plain version (nxos 64-640, C 1-10, golden and
+             linear-half angles, signed data, both lattices); timed beside
+             the tile kernel on a whole-body frame
+ 17 batched  the same three checks at kw 1.5/2/3 on both lattices; timed
  18 stream   tron-torch -a -G -u 0.4 -d 21 --stream on the whole-body series
              written to a .ra (twice), with --incremental, --half and
              TRON_BATCHED=1, each vs the in-memory recon, with launch counts
@@ -124,16 +127,28 @@ def main() -> int:
     # -- 2 build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.load()
-    # per kernel family (loop, batched per NSLOT, seg, degrid): the register
-    # range over its instantiations, the whole-body channel block (12) and
-    # the instantiations that spill, from ptxas's -v lines
+    # per kernel family (the tile kernel's four passes, batched per NSLOT,
+    # seg, degrid): the register range over its instantiations, the
+    # whole-body channel block (12) and the instantiations that spill, from
+    # ptxas's -v lines; an instantiation is named by its channel block KP
+    # (/V, the degrid kernel's floats per lane) and I/L (integer radii or
+    # the exact lattice)
     fam, name = {}, None
+    kernel_re = re.compile(
+        r"\d+(grid_tile_(?:band|items|contract|reduce)_kernel|grid_seg_radial2d_kernel"
+        r"|degrid_radial2d_kernel|grid_radial2d_kernel)(I(?:L[ib]\d+E)+E)?")
     for ln in built.log.splitlines():
-        m = re.search(r"((?:de)?grid(?:_seg)?_radial2d_kernel)ILi(\d+)E(?:Lb([01])E)?(?:Li(\d+)E)?", ln)
+        m = kernel_re.search(ln)
         if "Compiling entry function" in ln and m:
-            slots = m.group(4)
-            key = m.group(1) + ("" if slots in (None, "0") else f"<NSLOT={slots}>")
-            name = (key, f"{m.group(2)}{'' if m.group(3) is None else ('L' if m.group(3) == '1' else 'I')}")
+            args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+            ints = [v for t, v in args if t == "i"]
+            flags = [v for t, v in args if t == "b"]
+            key = m.group(1)
+            if key == "grid_radial2d_kernel":
+                key += f"<NSLOT={ints[1]}>"
+            inst = (ints[0] if ints else "") + (f"/{ints[1]}" if key.startswith("degrid") else "")
+            inst += "".join("L" if f == "1" else "I" for f in flags) or ("" if inst else "-")
+            name = (key, inst)
         elif name and "spill stores" in ln:
             sp = re.search(r"(\d+) bytes spill stores", ln)
             if sp and int(sp.group(1)):
@@ -149,7 +164,7 @@ def main() -> int:
         r = f["regs"]
         log("build", f"ptxas {key}: {len(r)} instantiations, {min(r.values())}-{max(r.values())} "
             f"registers (12 channels: {', '.join(f'{k} {v}' for k, v in r.items() if k[:2] == '12')}); "
-            f"spills in {sorted(f['spills']) or 'none'} (channel block, I/L lattice)")
+            f"spills in {sorted(f['spills']) or 'none'}")
 
     # -- 3 kernel vs plain ---------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -227,7 +242,7 @@ def main() -> int:
         require(out.shape == (NZ, 1, NRO // 2, NRO // 2), f"{mode} shape {out.shape}")
         require(bool(np.isfinite(out).all()), f"{mode} output not finite")
         require(n_launch == NZ and grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == NZ,
-                f"{mode}: {grid_cuda.LAUNCH_COUNTS} kernel launches, expected {NZ} of the loop kernel")
+                f"{mode}: {grid_cuda.LAUNCH_COUNTS} kernel launches, expected {NZ} of the tile kernel")
         outs[mode] = out[:, 0]
     a = torch.from_numpy(outs["direct"]).reshape(NZ, -1)
     b = torch.from_numpy(outs["incremental"]).reshape(NZ, -1)
@@ -305,12 +320,25 @@ def main() -> int:
         f"(plain,kernel,kernel,plain: {[round(1e3 * t, 4) for t in t_plain[:1] + t_kern + t_plain[1:]]}) "
         f"on {card}")
 
-    log("timing", f"whole-body gridding kernel {kern_ms:.4f} ms per frame; PERF.md records "
-        "0.711 ms for it on the same card class before the exact lattice was added")
+    # the tile kernel's four passes (band and weight table, items, contract,
+    # reduce), device time per frame from the profiler
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(20):
+            kern()
+        torch.cuda.synchronize()
+    passes = {re.search(r"grid_tile_\w+_kernel", e.key).group(0): e.self_device_time_total / e.count
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and "grid_tile_" in e.key}
+    log("timing", f"whole-body tile kernel {kern_ms:.4f} ms per frame (PERF.md: the per-pixel "
+        f"kernel it replaced took 0.7191 ms); device us per pass: "
+        f"{ {k: round(v, 2) for k, v in passes.items()} }, sum {sum(passes.values()):.2f} us")
+    require(len(passes) == 4, f"profiler saw the tile kernel's passes {sorted(passes)}")
 
     # -- 8 degrid kernel vs plain ---------------------------------------------
     from tron_tpu_torch.ops import degrid_cuda
     from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_plain
+    from tron_tpu_torch.ops.degrid import lattice_radii
 
     def cgrid(*shape):
         a = rng.standard_normal(shape, dtype=np.float32) + 1j * rng.standard_normal(
@@ -334,18 +362,18 @@ def main() -> int:
         ang = spoke_angles(npe, "golden", 19000, device=dev)
         for wrap in (True, False):
             got = degrid_cuda.degrid_radial2d(g, ang, nro, kw, b, wrap=wrap)
+            again = degrid_cuda.degrid_radial2d(g, ang, nro, kw, b, wrap=wrap)
             want = degrid_plain(g, ang, nro, kw, b, wrap=wrap)
             torch.cuda.synchronize()
             e = nrmse(got, want)
             mae = float((got - want).abs().max())
+            same = torch.equal(got, again)
             log("degrid", f"{name} {'wrap' if wrap else 'clip'}: nrmse {e:.3e} "
-                f"max_abs_err {mae:.3e} (tol {KERNEL_TOL})")
+                f"max_abs_err {mae:.3e} (tol {KERNEL_TOL}); repeat run bitwise equal: {same}")
             require(e <= KERNEL_TOL, f"degrid vs plain {name} wrap={wrap}: nrmse {e:.3e}")
+            require(same, f"repeat degrid run is not bitwise equal: {name} wrap={wrap}")
             if name == "nxos512 C6 npe204" and not wrap:
                 derr512 = mae
-                again = degrid_cuda.degrid_radial2d(g, ang, nro, kw, b, wrap=wrap)
-                require(torch.equal(got, again), "repeat degrid run is not bitwise equal")
-                log("degrid", "nxos512 C6 npe204 clip: repeat run bitwise equal")
 
     # -- 9 exact lattice -----------------------------------------------------
     for gos in (1.5, 2.0, 2.5):
@@ -512,9 +540,29 @@ def main() -> int:
     td_plain.append(timed(dplain, 5))
     dkern_ms = 1e3 * sum(td_kern) / 2
     dplain_ms = 1e3 * sum(td_plain) / 2
-    log("timing2", f"degridding one CGNR frame ({NC}x{NRO}x{NRO} -> {NC}x{work}x{NRO}, clip): kernel "
-        f"{dkern_ms:.4f} ms, plain {dplain_ms:.4f} ms (plain,kernel,kernel,plain: "
-        f"{[round(1e3 * t, 4) for t in td_plain[:1] + td_kern + td_plain[1:]]}) on {card}")
+    # the kernel alone: the bare C call on ready grid planes, without the
+    # wrapper's relayout (to_grid_planes), cos/sin, radius table and output
+    # allocation
+    kgp = degrid_cuda.to_grid_planes(kg)
+    dct, dst = torch.cos(dang), torch.sin(dang)
+    drad = lattice_radii(NRO, NRO, dev)
+    dout = torch.empty((NC, work, NRO), dtype=torch.complex64, device=dev)
+
+    def dbare():
+        code = built.lib.tron_degrid_radial2d_planes(
+            kgp.data_ptr(), dct.data_ptr(), dst.data_ptr(), drad.data_ptr(), dout.data_ptr(),
+            work, NRO, NRO, 2 * NC, int(2 * kw) + 1, 0, kw, beta,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(built.lib, code, "degrid_radial2d kernel")
+
+    td_bare = [timed(dbare, 200), timed(dbare, 200)]
+    dbare_ms = 1e3 * sum(td_bare) / 2
+    require(torch.equal(dout, dkern()), "the bare degrid call differs from the wrapper's")
+    log("timing2", f"degridding one CGNR frame ({NC}x{NRO}x{NRO} -> {NC}x{work}x{NRO}, clip): wrapper "
+        f"{dkern_ms:.4f} ms, kernel alone {dbare_ms:.4f} ms, plain {dplain_ms:.4f} ms "
+        f"(plain,wrapper,wrapper,plain: "
+        f"{[round(1e3 * t, 4) for t in td_plain[:1] + td_kern + td_plain[1:]]}; kernel alone "
+        f"{[round(1e3 * t, 4) for t in td_bare]}) on {card}")
 
     def forward_all():
         for z in range(NF):
@@ -573,7 +621,6 @@ def main() -> int:
 
     # -- 16 seg: the tile-culled gridding kernel (windowed=False) -------------
     from tron_tpu_torch.config import KernelTuning
-    from tron_tpu_torch.ops.degrid import lattice_radii
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
 
     seg_cases = [  # name, nxos, coils, spokes, angle scheme, nro of an exact lattice
@@ -588,69 +635,77 @@ def main() -> int:
         ("nxos100 C3 npe17 golden (partial edge tiles)", 100, 3, 17, "golden", None),
         ("nxos128 C10 npe1500 golden (2 channel blocks, 6 spoke chunks)", 128, 10, 1500, "golden", None),
     ]
+    bt = KernelTuning(batched=True)
+
+    def three_checks(phase, name, planes, sang, nxos, kwc, bc, rad):
+        """B4 (seg) bitwise equal to B5 (batched); the tile kernel (B1)
+        within 1e-6 of B4 and repeatable; each within KERNEL_TOL of its
+        plain version (the culled planes gridder for B4; for B1 and B5 the
+        planes gridder, at the row radii on a lattice)."""
+        tile = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, None)
+        again = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, None)
+        seg = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, False, None)
+        bat = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, bt)
+        culled = grid_radial2d_planes_culled(planes, sang, nxos, kwc, bc, rad=rad)
+        plain = culled if rad is not None else grid_radial2d_planes_plain(planes, sang, nxos, kwc, bc)
+        torch.cuda.synchronize()
+        same, rep = torch.equal(seg, bat), torch.equal(tile, again)
+        e41 = nrmse(tile, seg)
+        errs = {"tile": nrmse(tile, plain), "seg": nrmse(seg, culled), "batched": nrmse(bat, plain)}
+        log(phase, f"{name}: seg == batched bitwise {same}; tile vs seg nrmse {e41:.3e} (tol 1e-6), "
+            f"repeat bitwise {rep}; vs plain nrmse "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {KERNEL_TOL})")
+        require(same, f"seg and batched kernels differ: {name}")
+        require(rep, f"repeat tile-kernel run is not bitwise equal: {name}")
+        require(e41 <= 1e-6, f"tile vs seg kernel {name}: nrmse {e41:.3e}")
+        for k, v in errs.items():
+            require(v <= KERNEL_TOL, f"{k} kernel vs plain {name}: nrmse {v:.3e}")
+        return float((seg - culled).abs().max())
+
     seg_err = None
     for name, nxos, C, npe, scheme, nro in seg_cases:
         d = cgrid(C, npe, nro or nxos)
         d[:, : npe // 2] *= -1  # signed, as an incremental delta
         sang = spoke_angles(npe, scheme, 19000 if scheme == "golden" else 0, device=dev)
         if nro is None:
-            p = grid_cuda.to_sample_planes(d, nxos)
-            got = grid_cuda.grid_radial2d_planes(p, sang, nxos, kw, beta, windowed=False)
-            loop = grid_cuda.grid_radial2d_planes(p, sang, nxos, kw, beta)
-            want = grid_radial2d_planes_culled(p, sang, nxos, kw, beta)
+            mae = three_checks("seg", name, grid_cuda.to_sample_planes(d, nxos), sang, nxos, kw,
+                               beta, None)
         else:
-            got = grid_cuda.grid_radial2d_exact(d, sang, nxos, kw, beta, windowed=False)
-            loop = grid_cuda.grid_radial2d_exact(d, sang, nxos, kw, beta)
-            want = grid_radial2d_planes_culled(grid_cuda._planes(d), sang, nxos, kw, beta,
-                                               rad=lattice_radii(nro, nxos, dev))
-        torch.cuda.synchronize()
-        e = nrmse(got, want)
-        mae = float((got - want).abs().max())
-        same = torch.equal(got, loop)
-        log("seg", f"{name}: vs culled plain nrmse {e:.3e} max_abs_err {mae:.3e} (tol {KERNEL_TOL}); "
-            f"bitwise equal to the loop kernel: {same}")
-        require(e <= KERNEL_TOL, f"seg kernel vs plain {name}: nrmse {e:.3e}")
-        require(same, f"seg kernel differs from the loop kernel: {name}")
+            mae = three_checks("seg", name, grid_cuda._planes(d), sang, nxos, kw, beta,
+                               lattice_radii(nro, nxos, dev))
         if name == "nxos512 C6 npe204 golden":
             seg_err = mae
     wb_planes, wb_ang = planes_case(512, 6, 204, 19000)
     d42_planes, d42_ang = planes_case(512, 6, 42, 19950, signed=True)
-    loopk = lambda: grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
+    tilek = lambda: grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
     segk = lambda: grid_cuda.grid_radial2d_planes(  # noqa: E731
         wb_planes, wb_ang, 512, kw, beta, windowed=False)
     cplain = lambda: grid_radial2d_planes_culled(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
-    ts = [timed(cplain, 1), timed(loopk, 50), timed(segk, 50), timed(segk, 50), timed(loopk, 50),
+    ts = [timed(cplain, 1), timed(tilek, 50), timed(segk, 50), timed(segk, 50), timed(tilek, 50),
           timed(cplain, 1)]
     seg_ms = 1e3 * (ts[2] + ts[3]) / 2
     seg_plain_ms = 1e3 * (ts[0] + ts[5]) / 2
     seg_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, windowed=False), 50)
-    log("seg", f"one whole-body frame (nxos 512, 6 coils, 204 spokes): seg kernel {seg_ms:.4f} ms, loop "
+    log("seg", f"one whole-body frame (nxos 512, 6 coils, 204 spokes): seg kernel {seg_ms:.4f} ms, tile "
         f"kernel {1e3 * (ts[1] + ts[4]) / 2:.4f} ms, culled plain {seg_plain_ms:.4f} ms "
-        f"(plain, loop, seg, seg, loop, plain: {[round(1e3 * t, 4) for t in ts]}); 42-spoke delta "
+        f"(plain, tile, seg, seg, tile, plain: {[round(1e3 * t, 4) for t in ts]}); 42-spoke delta "
         f"seg kernel {seg_delta_ms:.4f} ms on {card}")
 
     # -- 17 batched: the static-unroll gridding kernel (tuning.batched) -------
-    bt = KernelTuning(batched=True)
     for kwb in (1.5, 2.0, 3.0):
         bb = kb_beta(kwb, 2.0)
         for lname, nxos, nro in (("integer radii, nxos 512", 512, None),
                                  ("lattice nro 512, nxos 384 (gridos 1.5)", 384, 512),
                                  ("lattice nro 512, nxos 640 (gridos 2.5)", 640, 512)):
+            rpu = 1.0 if nro is None else nro / nxos
+            name = (f"kw {kwb} {lname}, 6 coils, 204 spokes, NSLOT {grid_cuda.pick_nslot(kwb, rpu)} "
+                    f"(row bound {grid_cuda.row_bound(kwb, rpu)})")
             if nro is None:
-                got = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, nxos, kwb, bb, tuning=bt)
-                loop = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, nxos, kwb, bb)
+                three_checks("batched", name, wb_planes, wb_ang, nxos, kwb, bb, None)
             else:
-                d = cgrid(6, 204, nro)
-                got = grid_cuda.grid_radial2d_exact(d, wb_ang, nxos, kwb, bb, tuning=bt)
-                loop = grid_cuda.grid_radial2d_exact(d, wb_ang, nxos, kwb, bb)
-            torch.cuda.synchronize()
-            same = torch.equal(got, loop)
-            slots = grid_cuda.pick_nslot(kwb, 1.0 if nro is None else nro / nxos)
-            log("batched", f"kw {kwb} {lname}, 6 coils, 204 spokes: NSLOT {slots} (row bound "
-                f"{grid_cuda.row_bound(kwb, 1.0 if nro is None else nro / nxos)}); bitwise equal to the "
-                f"loop kernel: {same}")
-            require(same, f"batched kernel differs from the loop kernel: kw {kwb} {lname}")
+                three_checks("batched", name, grid_cuda._planes(cgrid(6, 204, nro)), wb_ang, nxos,
+                             kwb, bb, lattice_radii(nro, nxos, dev))
     bat = grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta, tuning=bt)
     want = grid_radial2d_planes_plain(wb_planes, wb_ang, 512, kw, beta)
     bat_err = float((bat - want).abs().max())
@@ -660,15 +715,15 @@ def main() -> int:
     batk = lambda: grid_cuda.grid_radial2d_planes(  # noqa: E731
         wb_planes, wb_ang, 512, kw, beta, tuning=bt)
     wplain = lambda: grid_radial2d_planes_plain(wb_planes, wb_ang, 512, kw, beta)  # noqa: E731
-    tb = [timed(wplain, 5), timed(loopk, 50), timed(batk, 50), timed(batk, 50), timed(loopk, 50),
+    tb = [timed(wplain, 5), timed(tilek, 50), timed(batk, 50), timed(batk, 50), timed(tilek, 50),
           timed(wplain, 5)]
     bat_ms = 1e3 * (tb[2] + tb[3]) / 2
     bat_plain_ms = 1e3 * (tb[0] + tb[5]) / 2
     bat_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, tuning=bt), 50)
-    log("batched", f"one whole-body frame: batched kernel {bat_ms:.4f} ms, loop kernel "
-        f"{1e3 * (tb[1] + tb[4]) / 2:.4f} ms, plain {bat_plain_ms:.4f} ms (plain, loop, batched, "
-        f"batched, loop, plain: {[round(1e3 * t, 4) for t in tb]}); 42-spoke delta batched kernel "
+    log("batched", f"one whole-body frame: batched kernel {bat_ms:.4f} ms, tile kernel "
+        f"{1e3 * (tb[1] + tb[4]) / 2:.4f} ms, plain {bat_plain_ms:.4f} ms (plain, tile, batched, "
+        f"batched, tile, plain: {[round(1e3 * t, 4) for t in tb]}); 42-spoke delta batched kernel "
         f"{bat_delta_ms:.4f} ms on {card}")
 
     # -- 18 stream: tron-torch --stream on the whole-body series --------------
@@ -770,7 +825,10 @@ def main() -> int:
         require(rc == 0, f"profiled --stream: exit {rc}")
         ka = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ka) / 1e6
-        grid_s = sum(e.self_device_time_total for e in ka if "grid_radial2d_kernel" in e.key) / 1e6
+        # every gridding kernel's passes: the tile kernel's grid_tile_*, the
+        # per-pixel grid_radial2d_kernel (batched) and grid_seg_radial2d_kernel
+        gridding = re.compile(r"grid_tile_\w+_kernel|(?<!de)grid_radial2d_kernel|grid_seg_radial2d_kernel")
+        grid_s = sum(e.self_device_time_total for e in ka if gridding.search(e.key)) / 1e6
         log("stream", f"alone: loader (read {len(z0s)} blocks of {nblk} spokes, transpose into pinned) "
             f"{t_load:.3f} s; frames on device-resident data {t_comp:.3f} s (dispatch {t_disp:.3f} s); "
             f"D2H {t_d2h:.3f} s. Profiled --stream: wall {wall:.3f} s, card busy {busy:.3f} s "
@@ -849,6 +907,7 @@ def main() -> int:
             "launches": fwd_launches + cg_degrid,
             "max_abs_err": derr512,
             "ms": dkern_ms,
+            "kernel_ms": dbare_ms,
             "plain_ms": dplain_ms,
             **common,
             "bound_ms": d_bound,

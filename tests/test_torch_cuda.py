@@ -172,10 +172,12 @@ def test_degrid_wrapper_raises_on_bad_input(dev):
 )
 def test_seg_and_batched_kernels_equal_loop_kernel(dev, exact, kw, nxos, C, npe, scheme):
     """The tile-culled kernel (windowed=False, B4) and the static-unroll
-    kernel (tuning.batched, B5) are bitwise equal to the loop kernel (B1):
-    culling drops only zero terms and a masked slot adds fmaf(0, s, acc).
-    Partial tiles (nxos 100), two spoke chunks (1500), two channel blocks
-    (C 10), signed data, both lattices."""
+    kernel (tuning.batched, B5) run the same per-pixel code and are bitwise
+    equal: culling drops only zero terms and a masked slot adds fmaf(0, s,
+    acc).  The default tile kernel (B1) sums the same terms regrouped by
+    work item: within 1e-6 NRMSE of B4.  Each is within 1e-5 of its plain
+    version.  Partial tiles (nxos 100), split tiles and long spoke lists
+    (1500), two channel blocks (C 10), signed data, both lattices."""
     from tron_tpu_torch.config import KernelTuning
     from tron_tpu_torch.ops.degrid import lattice_radii
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
@@ -188,15 +190,34 @@ def test_seg_and_batched_kernels_equal_loop_kernel(dev, exact, kw, nxos, C, npe,
     ang = spoke_angles(npe, scheme, 19000 if scheme == "golden" else 0, device=dev)
     rad = lattice_radii(nR, nxos, dev) if exact else None
     counts = dict(grid_cuda.LAUNCH_COUNTS)
-    loop = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, None)
+    tile = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, None)
     seg = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, False, None)
     batched = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, KernelTuning(batched=True))
     torch.cuda.synchronize()
-    assert torch.equal(seg, loop) and torch.equal(batched, loop)
+    assert torch.equal(seg, batched)
+    assert _nrmse(tile, seg) <= 1e-6
     for k in grid_cuda.KERNELS:
         assert grid_cuda.LAUNCH_COUNTS[k] == counts[k] + 1
-    if npe <= 204 and kw == 2.0:
-        assert _nrmse(seg, grid_radial2d_planes_culled(planes, ang, nxos, kw, beta, rad=rad)) <= TOL
+    culled = grid_radial2d_planes_culled(planes, ang, nxos, kw, beta, rad=rad)
+    # the planes gridder at the lattice's row radii is the culled one (equal
+    # to 1e-6, tests/test_torch_cull.py); on integer radii the plain planes
+    # gridder
+    plain = culled if exact else grid_radial2d_planes_plain(planes, ang, nxos, kw, beta)
+    assert _nrmse(seg, culled) <= TOL
+    assert _nrmse(batched, plain) <= TOL
+    assert _nrmse(tile, plain) <= TOL
+
+
+@pytest.mark.gpu
+def test_tile_kernel_raises_beyond_its_weight_windows(dev):
+    """The tile kernel's weight windows, floor(2*kw) + 3 pixels per axis,
+    fit 16 lanes each below kernwidth 7; from there the wrapper raises."""
+    planes = torch.zeros((4, 64, 2), device=dev)
+    ang = spoke_angles(4, "golden", 0, device=dev)
+    grid_cuda.grid_radial2d_planes(planes, ang, 64, 6.9, kb_beta(6.9, 2.0))
+    with pytest.raises(ValueError, match="kernwidth"):
+        grid_cuda.grid_radial2d_planes(planes, ang, 64, grid_cuda.MAX_KERNWIDTH,
+                                       kb_beta(grid_cuda.MAX_KERNWIDTH, 2.0))
 
 
 @pytest.mark.gpu

@@ -164,7 +164,7 @@ def test_culling_culls_and_lists_are_ordered():
 
 
 def _band_rows(X, Y, c, s, kw, nxos, rows_per_unit, exact):
-    """The kernel's widened row band (csrc/grid_radial2d.cuh:spoke_band) in
+    """The kernel's widened row band (csrc/grid_radial2d.cuh:span_band at one pixel) in
     float32, vectorised over pixels and spokes: its row count."""
     f = np.float32
     kw = f(kw)

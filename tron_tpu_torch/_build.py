@@ -61,10 +61,13 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    cs = ctypes.c_size_t
     lib.tron_grid_radial2d_planes.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp, cs, vp,
     ]
     lib.tron_grid_radial2d_planes.restype = ci
+    lib.tron_grid_radial2d_workspace_bytes.argtypes = [ci, ci, ci, ci, cf]
+    lib.tron_grid_radial2d_workspace_bytes.restype = cs
     lib.tron_grid_radial2d_batched_planes.argtypes = [
         vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, ci, vp,
     ]

@@ -45,8 +45,9 @@ class KernelTuning:
     None resolves through ``from_env`` at each call, so a clean environment
     gives these defaults."""
 
-    # batched-eval gridding: the static-unroll variant of the gridding
-    # kernel (B5 `_win_kernel_batched`), bitwise equal to the loop kernel
+    # batched-eval gridding: the static-unroll per-pixel gridding kernel
+    # (B5 `_win_kernel_batched`), equal to the default tile kernel up to the
+    # grouping of its fp32 sums
     batched: bool = False
 
     @classmethod

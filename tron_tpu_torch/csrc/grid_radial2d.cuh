@@ -1,12 +1,16 @@
 // Device code shared by the three gridding kernels:
-//   - grid_radial2d_kernel<KP, LATTICE, 0>: the loop kernel
-//     (csrc/grid_radial2d.cu; B1 _win_kernel and B2 _grid_kernel);
-//   - grid_radial2d_kernel<KP, LATTICE, NSLOT>: its static-unroll variant
-//     (csrc/grid_radial2d_batched.cu; B5 _win_kernel_batched);
+//   - grid_tile_*_kernel (csrc/grid_radial2d.cu; B1 _win_kernel and B2
+//     _grid_kernel): the per-tile contraction over load-balanced work items,
+//     whose tile bands are span_band below over a tile's pixel span;
+//   - grid_radial2d_kernel<KP, LATTICE, NSLOT>: the per-pixel gather with a
+//     static unroll over NSLOT row slots (csrc/grid_radial2d_batched.cu; B5
+//     _win_kernel_batched);
 //   - grid_seg_radial2d_kernel (csrc/grid_seg_radial2d.cu; B4 _seg_kernel),
-//     which walks only a tile's culled spoke list.
-// All three evaluate one (pixel, spoke) pair with grid_spoke below, so they
-// sum the same terms in the same order and give the same output bits.
+//     the per-pixel gather over a tile's culled spoke list.
+// The two per-pixel kernels evaluate one (pixel, spoke) pair with
+// grid_spoke below, so they sum the same terms in the same order and give
+// the same output bits; the tile kernel sums the same terms with the same
+// weights, regrouped by work item.
 //
 // The contract (tron_tpu/ops/grid_pallas.py):
 //
@@ -23,13 +27,13 @@
 //     degridding kernel reads, so the two stay one adjoint pair; u >= 1
 //     (readout 0 is never gridded).
 //
-// Each thread owns pixel (Y, X) and keeps the real channel sums of one
-// channel block in registers (12 at the whole-body geometry: 6 coils, re
-// and im).  Per spoke it computes the radius band where |r cos t - X| < kw
-// and |r sin t - Y| < kw, converts it to rows and widens it by one row on
-// each side so that fp32 rounding of the band edges never drops a term;
-// KB's own support test (|x| < kw, kernels/kb.py) then decides each term
-// exactly as the plain version does.
+// In the per-pixel kernels each thread owns pixel (Y, X) and keeps the
+// real channel sums of one channel block in registers (12 at the
+// whole-body geometry: 6 coils, re and im).  Per spoke it computes the
+// radius band where |r cos t - X| < kw and |r sin t - Y| < kw, converts it
+// to rows and widens it by one row on each side so that fp32 rounding of
+// the band edges never drops a term; KB's own support test (|x| < kw,
+// kernels/kb.py) then decides each term exactly as the plain version does.
 
 #pragma once
 
@@ -76,28 +80,32 @@ __device__ __forceinline__ Pixel make_pixel(int x, int y, int nR, int nxos,
   return px;
 }
 
-// Narrow [lo, hi] to the radii where |r*c - p| < kw, using inv = 1/c
-// (inv == 0 marks c == 0: then the axis does not bound r).
-__device__ __forceinline__ void narrow(float p, float kw, float inv, float& lo,
-                                       float& hi) {
+// Narrow [lo, hi] to the radii where r*c - p lies within kw of [0, p1 - p0]
+// for some p in [p0, p1], using inv = 1/c (inv == 0 marks c == 0: then the
+// axis does not bound r).  p0 == p1 is one pixel's band; a tile's span
+// gives the union of its pixels' bands, since the rounded (p0 - kw) * inv
+// and (p1 + kw) * inv bound every pixel's own rounded ends.
+__device__ __forceinline__ void narrow(float p0, float p1, float kw, float inv,
+                                       float& lo, float& hi) {
   if (inv != 0.0f) {
-    const float a = (p - kw) * inv;
-    const float b = (p + kw) * inv;
+    const float a = (p0 - kw) * inv;
+    const float b = (p1 + kw) * inv;
     lo = fmaxf(lo, fminf(a, b));
     hi = fminf(hi, fmaxf(a, b));
   }
 }
 
-// The widened band of one spoke at the pixel: radii [a, b] (integer radii)
-// or rows [a, b] (exact lattice).  a > b when it is empty.
+// The widened band of one spoke over the pixels [X0, X1] x [Y0, Y1] (one
+// pixel: X0 == X1, Y0 == Y1): radii [a, b] (integer radii) or rows [a, b]
+// (exact lattice).  a > b when it is empty.
 template <bool LATTICE>
-__device__ __forceinline__ void spoke_band(const Pixel& px, float ic, float is,
-                                           int& a, int& b) {
+__device__ __forceinline__ void span_band(const Pixel& px, float X1, float Y1,
+                                          float ic, float is, int& a, int& b) {
   if constexpr (!LATTICE) {
     float lo = static_cast<float>(px.rmin);
     float hi = static_cast<float>(px.rmax);
-    narrow(px.X, px.kw, ic, lo, hi);
-    narrow(px.Y, px.kw, is, lo, hi);
+    narrow(px.X, X1, px.kw, ic, lo, hi);
+    narrow(px.Y, Y1, px.kw, is, lo, hi);
     // clamp before the int conversion (1/c can be huge), then widen by one
     // row on each side
     lo = fminf(lo, static_cast<float>(px.rmax + 2));
@@ -107,8 +115,8 @@ __device__ __forceinline__ void spoke_band(const Pixel& px, float ic, float is,
   } else {
     float lo = -px.span;
     float hi = px.span;
-    narrow(px.X, px.kw, ic, lo, hi);
-    narrow(px.Y, px.kw, is, lo, hi);
+    narrow(px.X, X1, px.kw, ic, lo, hi);
+    narrow(px.Y, Y1, px.kw, is, lo, hi);
     lo = fminf(lo, px.span);
     hi = fmaxf(hi, -px.span);
     a = max(static_cast<int>(floorf(lo * px.rows_per_unit + px.hrow)) - 1, 1);
@@ -119,12 +127,12 @@ __device__ __forceinline__ void spoke_band(const Pixel& px, float ic, float is,
 
 // Add spoke pe's terms at the pixel to acc (channels k0 .. k0+kn-1).
 //   NSLOT == 0: a loop over the band's rows that skips a row as soon as one
-//     of its two weights is 0 (the loop kernel, B1);
+//     of its two weights is 0 (B4's per-pixel code);
 //   NSLOT > 0: a static unroll over NSLOT row slots (B5): slot j grids row
 //     a + j with the row index clamped into the plane, and its weight is
 //     multiplied by a 0/1 mask (a + j <= b); nothing is skipped.  A masked
 //     or out-of-support slot adds fmaf(0, s, acc) == acc, so the sums equal
-//     the loop's bit for bit.  The caller guarantees b - a + 1 <= NSLOT.
+//     the loop's (B4's) bit for bit.  The caller guarantees b - a + 1 <= NSLOT.
 template <int KP, bool LATTICE, int NSLOT>
 __device__ __forceinline__ void grid_spoke(const float* __restrict__ planes,
                                            const float* __restrict__ rad,
@@ -132,7 +140,7 @@ __device__ __forceinline__ void grid_spoke(const float* __restrict__ planes,
                                            float c, float s, float ic, float is,
                                            const Pixel& px, float (&acc)[KP]) {
   int a, b;
-  spoke_band<LATTICE>(px, ic, is, a, b);
+  span_band<LATTICE>(px, px.X, px.Y, ic, is, a, b);
   if (a > b) return;
   // row u of spoke pe at base + u*K (integer radii: u is the radius r)
   const float* base =
@@ -192,7 +200,8 @@ __device__ __forceinline__ void store(float2* __restrict__ out, const float (&ac
 
 // One thread per output pixel, a gather over every spoke in index order;
 // cos/sin and their reciprocals are staged in shared memory in chunks.
-// NSLOT selects the loop kernel (0) or its static-unroll variant.
+// NSLOT > 0: the static-unroll kernel (B5); NSLOT == 0, a plain row loop
+// per (pixel, spoke), is not launched (B4 runs that code over culled lists).
 template <int KP, bool LATTICE, int NSLOT>
 __global__ void __launch_bounds__(kThreads)
 grid_radial2d_kernel(const float* __restrict__ planes,  // (npe, nR, K)

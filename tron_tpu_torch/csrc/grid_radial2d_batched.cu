@@ -1,6 +1,6 @@
-// The static-unroll variant of the gridding kernel (NSLOT > 0 instances of
+// The static-unroll per-pixel gridding kernel (NSLOT > 0 instances of
 // grid_radial2d_kernel in grid_radial2d.cuh).  Its own source only so that
-// nvcc builds it in parallel with the loop kernel.
+// nvcc builds it in parallel with the others.
 //
 // Replaces tron_tpu/ops/grid_pallas.py::_win_kernel_batched, B1 with the
 // per-hit dynamic loop replaced by a static unroll over hit slots, padded
@@ -8,8 +8,9 @@
 // grid_pallas.py:1190-1194).  Here the unrolled loop is the one over a
 // spoke's rows: slot j grids row a + j of the spoke's band [a, b], the row
 // index clamped into the plane, its weight times (a + j <= b), with no
-// early exit on a zero weight.  Same terms in the same order as the loop
-// kernel, so the same bits (fmaf(0, s, acc) == acc).
+// early exit on a zero weight.  Same terms in the same order as the
+// per-pixel row loop that the tile-culled kernel (grid_seg_radial2d.cu)
+// runs, so the same bits (fmaf(0, s, acc) == acc).
 //
 // NSLOT must cover the longest band.  Both |r c - X| < kw and |r s - Y| <
 // kw hold on a radius interval shorter than 2*sqrt(2)*kw (the axis with
@@ -20,8 +21,9 @@
 // instantiated NSLOT that covers it and raises when none does; this entry
 // point refuses any other NSLOT.
 //
-// Cost: as the loop kernel, with NSLOT KB pairs per (pixel, spoke) whose
-// band is not empty, evaluated without divergence on the row count.
+// Cost: one thread per pixel walking every spoke, with NSLOT KB pairs per
+// (pixel, spoke) whose band is not empty, evaluated without divergence on
+// the row count; the centre tiles' pixels set its time (PERF.md).
 
 #include "grid_radial2d.cuh"
 

@@ -19,17 +19,17 @@
 //     into a shared-memory list in ascending spoke index with __ballot_sync,
 //     __popc and a prefix over the block's 8 warps, with their cos, sin and
 //     reciprocals.
-//   Phase 2: each thread runs the loop kernel's per-(pixel, spoke) code
+//   Phase 2: each thread runs the per-(pixel, spoke) row loop
 //     (grid_spoke<KP, LATTICE, 0>) over the listed spokes only.
 // A culled spoke adds no nonzero term to any pixel of the tile, and the
-// kept terms are summed in the loop kernel's order (spokes ascending, rows
-// ascending), so the output equals the loop kernel's bit for bit.  Any
+// kept terms are summed in spoke order (spokes ascending, rows ascending),
+// so the output equals the static-unroll kernel's bit for bit.  Any
 // nxos (partial edge tiles), any npe (chunks), both row lattices.
 //
 // Cost: the band test now runs per (pixel, listed spoke): at whole-body
 // (nxos 512, 204 spokes) a tile is reached by a few percent of the spokes
 // far from the centre and by all of them at the centre, so the block
-// workload is uneven; the KB evaluations of the hits are the loop kernel's.
+// workload is uneven; the KB evaluations of the hits are grid_spoke's.
 // The culling test itself is one spoke per thread per chunk.
 //
 // Plain C interface, loaded with ctypes by tron_tpu_torch/_build.py.
@@ -111,7 +111,7 @@ grid_seg_radial2d_kernel(const float* __restrict__ planes,  // (npe, nR, K)
         s_pe[i] = p;
       }
       __syncthreads();
-      // Phase 2: the loop kernel's per-pixel code over the listed spokes
+      // Phase 2: the per-pixel row loop over the listed spokes
       if (!active) continue;
       for (int i = 0; i < total; ++i) {
         grid_spoke<KP, LATTICE, 0>(planes, rad, s_pe[i], k0, kn, K, s_c[i],

@@ -87,8 +87,8 @@ def degrid_radial2d(
     ``matmul_dtype`` names the JAX precision class; the kernel computes in
     fp32 for every class.  ``tuning.batched`` launches the same kernel: the
     Pallas kernel's batched mode is a static unroll over its neighbours
-    (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls its noff^2
-    neighbours statically already."""
+    (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls each
+    neighbour row's noff columns statically already."""
     if matmul_dtype not in MATMUL_DTYPES:
         raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
     if kgrid.dim() == 2:

@@ -3,16 +3,20 @@
 The wrappers here launch one of three hand-written kernels, all with the
 contract of `csrc/grid_radial2d.cuh`:
 
-- ``grid_radial2d`` (`csrc/grid_radial2d.cu`): the loop kernel, which
-  replaces the Pallas kernels `_win_kernel` (in its integer-radius and its
-  exact-lattice modes) and `_grid_kernel`; the default (``windowed=True``);
-- ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): its
-  static-unroll variant, which replaces `_win_kernel_batched`, taken when
-  ``tuning.batched`` is set (``KernelTuning(batched=True)``,
-  ``TRON_BATCHED=1``); bitwise equal to the loop kernel;
+- ``grid_radial2d`` (`csrc/grid_radial2d.cu`): the per-tile contraction
+  over load-balanced work items, which replaces the Pallas kernels
+  `_win_kernel` (in its integer-radius and its exact-lattice modes) and
+  `_grid_kernel`; the default (``windowed=True``).  Its workspace (tile
+  lists, item table, partial sums) is allocated here with ``torch.empty``;
+- ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): the
+  per-pixel gather with a static unroll over row slots, which replaces
+  `_win_kernel_batched`, taken when ``tuning.batched`` is set
+  (``KernelTuning(batched=True)``, ``TRON_BATCHED=1``);
 - ``grid_seg_radial2d`` (`csrc/grid_seg_radial2d.cu`): the tile-culled
-  gather, which replaces `_seg_kernel`, taken with ``windowed=False``;
-  bitwise equal to the loop kernel.
+  per-pixel gather, which replaces `_seg_kernel`, taken with
+  ``windowed=False``; bitwise equal to the batched kernel (the same
+  per-pixel code), and equal to the default kernel up to the grouping of
+  its fp32 sums.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the kernels'
 plain version (`ops/grid.py`: the planes gridder, or for ``windowed=False``
@@ -27,6 +31,7 @@ them.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -48,6 +53,10 @@ LAUNCH_COUNTS = dict.fromkeys(KERNELS, 0)
 # Precision classes of the JAX gridder.  They exist for the TPU's bf16 MXU;
 # the CUDA kernels run fp32 FMA for every one of them.
 MATMUL_DTYPES = ("bfloat16", "bf16x2", "bf16x3", "float32")
+
+# The tile kernel's weight windows, floor(2*kernwidth) + 3 pixels per axis,
+# take at most 16 lanes each (csrc/grid_radial2d.cu).
+MAX_KERNWIDTH = 7.0
 
 # Row-slot counts the static-unroll kernel is built for
 # (csrc/grid_radial2d_batched.cu).
@@ -130,6 +139,8 @@ def _check_planes(
         )
     if not planes.is_contiguous():
         raise ValueError("planes must be contiguous")
+    if npe * nR > 2**31 - 1:
+        raise ValueError("npe*nR must fit a 32-bit int")
     if angles.shape != (npe,) or angles.dtype != torch.float32:
         raise ValueError(
             f"angles must be ({npe},) float32, got {tuple(angles.shape)} {angles.dtype}"
@@ -169,6 +180,13 @@ def grid_radial2d_planes(
     return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning)
 
 
+@functools.cache
+def _workspace_bytes(lib, npe: int, nR: int, nxos: int, K: int, kernwidth: float) -> int:
+    """Bytes of the tile kernel's workspace for these shapes (the C side
+    lays it out)."""
+    return int(lib.tron_grid_radial2d_workspace_bytes(npe, nR, nxos, K, kernwidth))
+
+
 def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> torch.Tensor:
     """rad None: integer radii (nR == nxos); else the (nR,) row radii."""
     built = _build.load()
@@ -191,7 +209,17 @@ def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> tor
             nslot,
         )
     else:
-        name, fn, extra = "grid_radial2d", built.lib.tron_grid_radial2d_planes, ()
+        if kernwidth >= MAX_KERNWIDTH:
+            raise ValueError(
+                f"the gridding kernel takes kernwidth < {MAX_KERNWIDTH}, got {kernwidth}"
+            )
+        work = torch.empty(
+            _workspace_bytes(built.lib, npe, nR, nxos, K, float(kernwidth)),
+            dtype=torch.uint8, device=planes.device,
+        )
+        name, fn, extra = "grid_radial2d", built.lib.tron_grid_radial2d_planes, (
+            work.data_ptr(), work.numel(),
+        )
     with torch.cuda.device(planes.device):
         code = fn(*args, *extra, torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check(built.lib, code, f"{name} kernel")
