@@ -5,7 +5,9 @@
 
 Phases, one line each (any failure raises and exits non-zero):
   1 env      card name and power limit, torch and CUDA versions
-  2 build    nvcc builds csrc/*.cu for sm_90a into build/tron_tpu_torch/
+  2 build    nvcc builds csrc/*.cu for sm_90a into build/tron_tpu_torch/;
+             ptxas registers and spills per kernel; the library's SASS holds
+             tensor-core MMAs in B5's contraction and bulk copies in B4's
   3 kernel   the CUDA gridding kernel (the tile kernel) vs its plain torch
              version on the card
   4 main     whole-body golden-angle sliding-window recon (6 coils, nro 512,
@@ -28,27 +30,33 @@ Phases, one line each (any failure raises and exits non-zero):
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
  15 timing2  degrid kernel vs plain ms (the wrapper, and the bare C call),
              forward Msamples/s, CGNR ms per frame
- 16 seg      the tile-culled gridding kernel (windowed=False) bit for bit vs
-             the static-unroll one, the tile kernel within 1e-6 of it, each
-             vs its plain version (nxos 64-640, C 1-10, golden and
-             linear-half angles, signed data, both lattices); timed beside
-             the tile kernel on a whole-body frame
- 17 batched  the same three checks at kw 1.5/2/3 on both lattices; timed
+ 16 seg      the segmented gridding kernel (windowed=False, B4) within 1e-6
+             of the tile kernel (B1), B4, B1 and the tensor-core kernel
+             (tuning.batched, B5) each within 1e-5 of its plain version, each
+             repeat run bitwise (nxos 8-640, C 1-10, golden and linear-half
+             angles, signed data, both lattices, segments of 3-32 rows); B4
+             timed beside B1 on a whole-body frame, its four passes in the
+             profiler
+ 17 batched  the same checks at kw 1.5/2/3 on both lattices; B5 timed
+             beside B1, its four passes in the profiler
  18 stream   tron-torch -a -G -u 0.4 -d 21 --stream on the whole-body series
              written to a .ra (twice), with --incremental, --half and
              TRON_BATCHED=1, each vs the in-memory recon, with launch counts
              by kernel and the host wall from file to file; then its stages
              alone and the card's busy share over one profiled run
  19 kbench   python -m tron_tpu_torch.tools.kbench: default, --no-windowed,
-             --batched and --op degrid, each with --check, at whole-body
+             --batched and --op degrid, each with --check, at whole-body;
+             each one's device time per frame by kernel in the profiler
 Then the kernel table as one JSON line (each kernel's launches on its main
-path, error, ms, plain ms, bound and library call), the nvidia-smi line, and
+path, error, ms, the passes' device ms, plain ms, bound and library call), the
+nvidia-smi line, and
 the result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -63,6 +71,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 NC, NRO, SLIDE, NZ = 6, 512, 21, 956  # whole-body class (bench.py:168-174)
 KERNEL_TOL = 1e-5                     # kernel vs plain, NRMSE (fp32 sums in two orders)
+SEG_TOL = 1e-6                        # B4 vs B1: B1's fp32 terms, regrouped at work items
 INC_TOL = 1e-4                        # incremental vs direct worst frame (bench.py:266)
 CG_TOL = 1e-4                         # CGNR, kernels vs plain operators (tests/test_torch_solver.py)
 DOT_TOL = 1e-4                        # pair dot test (tests/test_grid_pallas.py:419)
@@ -127,25 +136,24 @@ def main() -> int:
     # -- 2 build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.load()
-    # per kernel family (the tile kernel's four passes, batched per NSLOT,
-    # seg, degrid): the register range over its instantiations, the
-    # whole-body channel block (12) and the instantiations that spill, from
-    # ptxas's -v lines; an instantiation is named by its channel block KP
-    # (/V, the degrid kernel's floats per lane) and I/L (integer radii or
-    # the exact lattice)
+    # per kernel (source file and kernel, the shared passes once per
+    # source): the register range over its instantiations, the whole-body
+    # channel block (12) and the instantiations that spill, from ptxas's -v
+    # lines; an instantiation is named by its channel block KP (/V, the
+    # degrid kernel's floats per lane) and I/L (integer radii or the exact
+    # lattice)
     fam, name = {}, None
     kernel_re = re.compile(
-        r"\d+(grid_tile_(?:band|items|contract|reduce)_kernel|grid_seg_radial2d_kernel"
-        r"|degrid_radial2d_kernel|grid_radial2d_kernel)(I(?:L[ib]\d+E)+E)?")
+        r"_(grid_radial2d|grid_radial2d_batched|grid_seg_radial2d|degrid_radial2d)_cu_\w*?"
+        r"(grid_tile_(?:band|items|contract|mma|reduce)_kernel|grid_seg_(?:list|contract)_kernel"
+        r"|degrid_radial2d_kernel)(I(?:L[ib]\d+E)+E)?")
     for ln in built.log.splitlines():
         m = kernel_re.search(ln)
         if "Compiling entry function" in ln and m:
-            args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+            args = re.findall(r"L([ib])(\d+)E", m.group(3) or "")
             ints = [v for t, v in args if t == "i"]
             flags = [v for t, v in args if t == "b"]
-            key = m.group(1)
-            if key == "grid_radial2d_kernel":
-                key += f"<NSLOT={ints[1]}>"
+            key = f"{m.group(1)}.cu:{m.group(2)}"
             inst = (ints[0] if ints else "") + (f"/{ints[1]}" if key.startswith("degrid") else "")
             inst += "".join("L" if f == "1" else "I" for f in flags) or ("" if inst else "-")
             name = (key, inst)
@@ -165,6 +173,28 @@ def main() -> int:
         log("build", f"ptxas {key}: {len(r)} instantiations, {min(r.values())}-{max(r.values())} "
             f"registers (12 channels: {', '.join(f'{k} {v}' for k, v in r.items() if k[:2] == '12')}); "
             f"spills in {sorted(f['spills']) or 'none'}")
+    # what the built code holds: B5's contraction runs on tensor cores (HMMA,
+    # from mma.sync), B4's contraction stages by bulk async copies (UBLKCP,
+    # from cp.async.bulk) on mbarriers (SYNCS)
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(built.path)], capture_output=True, text=True,
+                          check=True).stdout
+    ops, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*?(grid_tile_(?:band|items|contract|mma|reduce)_kernel"
+                      r"|grid_seg_(?:list|contract)_kernel)", ln)
+        if "Function :" in ln:
+            fn = m.group(1) if m else None
+        elif fn:
+            for op in ("HMMA", "UBLKCP", "SYNCS", "LDGSTS", "FFMA"):
+                if re.search(rf"\b{op}\b", ln):
+                    ops.setdefault(fn, set()).add(op)
+    log("build", "SASS opcodes per gridding kernel: "
+        f"{ {k: sorted(v) for k, v in sorted(ops.items())} }")
+    require("HMMA" in ops.get("grid_tile_mma_kernel", ()),
+            "B5's contraction (grid_tile_mma_kernel) holds no tensor-core MMA (HMMA)")
+    require({"UBLKCP", "SYNCS"} <= ops.get("grid_seg_contract_kernel", set()),
+            "B4's contraction (grid_seg_contract_kernel) holds no bulk copy (UBLKCP) on an mbarrier")
 
     # -- 3 kernel vs plain ---------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -320,16 +350,25 @@ def main() -> int:
         f"(plain,kernel,kernel,plain: {[round(1e3 * t, 4) for t in t_plain[:1] + t_kern + t_plain[1:]]}) "
         f"on {card}")
 
+    grid_pass = re.compile(r"grid_(?:tile|seg)_\w+?_kernel")
+
+    def device_passes(fn, n=20, rx=grid_pass):
+        """Device us per call of each kernel that ``fn`` launches whose name
+        matches ``rx`` (by default the gridding passes), from the profiler
+        over n calls."""
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return {rx.search(e.key).group(0): e.self_device_time_total / n
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)}
+
     # the tile kernel's four passes (band and weight table, items, contract,
     # reduce), device time per frame from the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(20):
-            kern()
-        torch.cuda.synchronize()
-    passes = {re.search(r"grid_tile_\w+_kernel", e.key).group(0): e.self_device_time_total / e.count
-              for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and "grid_tile_" in e.key}
+    passes = device_passes(kern)
+    kern_dev_ms = sum(passes.values()) / 1e3
     log("timing", f"whole-body tile kernel {kern_ms:.4f} ms per frame (PERF.md: the per-pixel "
         f"kernel it replaced took 0.7191 ms); device us per pass: "
         f"{ {k: round(v, 2) for k, v in passes.items()} }, sum {sum(passes.values()):.2f} us")
@@ -619,7 +658,7 @@ def main() -> int:
         nbytes = kgrid.numel() * 8 + angles.numel() * 4 + nro * 4 + C * angles.numel() * nro * 8
         return bound(nbytes, flops)
 
-    # -- 16 seg: the tile-culled gridding kernel (windowed=False) -------------
+    # -- 16 seg: the segmented gridding kernel (windowed=False, B4) ----------
     from tron_tpu_torch.config import KernelTuning
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
 
@@ -634,30 +673,35 @@ def main() -> int:
         ("nxos640 C2 npe24 linear_half, lattice nro 512 (gridos 2.5)", 640, 2, 24, "linear_half", 512),
         ("nxos100 C3 npe17 golden (partial edge tiles)", 100, 3, 17, "golden", None),
         ("nxos128 C10 npe1500 golden (2 channel blocks, 6 spoke chunks)", 128, 10, 1500, "golden", None),
+        ("nxos40 C2 npe12 golden (20-row segments)", 40, 2, 12, "golden", None),
+        ("nxos36 C2 npe11 golden, lattice nro 27 (odd, 13-row segments)", 36, 2, 11, "golden", 27),
+        ("nxos8 C1 npe5 golden, lattice nro 6 (3-row segments, 42 per stage)", 8, 1, 5, "golden", 6),
     ]
     bt = KernelTuning(batched=True)
 
     def three_checks(phase, name, planes, sang, nxos, kwc, bc, rad):
-        """B4 (seg) bitwise equal to B5 (batched); the tile kernel (B1)
-        within 1e-6 of B4 and repeatable; each within KERNEL_TOL of its
-        plain version (the culled planes gridder for B4; for B1 and B5 the
-        planes gridder, at the row radii on a lattice)."""
-        tile = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, None)
-        again = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, None)
-        seg = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, False, None)
-        bat = grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, True, bt)
+        """B4 (seg) within SEG_TOL of the tile kernel (B1): B1's fp32 terms,
+        regrouped at work items; B1, B4 and B5 (batched) each within
+        KERNEL_TOL of its plain version (the culled planes gridder for B4;
+        for B1 and B5 the planes gridder, at the row radii on a lattice);
+        each repeat run bitwise equal (no atomics)."""
+        runs = {}
+        for k, windowed, tuning in (("tile", True, None), ("seg", False, None), ("batched", True, bt)):
+            runs[k] = [grid_cuda._launch(planes, sang, nxos, kwc, bc, rad, windowed, tuning)
+                       for _ in range(2)]
         culled = grid_radial2d_planes_culled(planes, sang, nxos, kwc, bc, rad=rad)
         plain = culled if rad is not None else grid_radial2d_planes_plain(planes, sang, nxos, kwc, bc)
         torch.cuda.synchronize()
-        same, rep = torch.equal(seg, bat), torch.equal(tile, again)
-        e41 = nrmse(tile, seg)
+        tile, seg, bat = (runs[k][0] for k in ("tile", "seg", "batched"))
+        rep = {k: torch.equal(*v) for k, v in runs.items()}
+        e41 = nrmse(seg, tile)
         errs = {"tile": nrmse(tile, plain), "seg": nrmse(seg, culled), "batched": nrmse(bat, plain)}
-        log(phase, f"{name}: seg == batched bitwise {same}; tile vs seg nrmse {e41:.3e} (tol 1e-6), "
-            f"repeat bitwise {rep}; vs plain nrmse "
-            f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {KERNEL_TOL})")
-        require(same, f"seg and batched kernels differ: {name}")
-        require(rep, f"repeat tile-kernel run is not bitwise equal: {name}")
-        require(e41 <= 1e-6, f"tile vs seg kernel {name}: nrmse {e41:.3e}")
+        log(phase, f"{name}: seg vs tile nrmse {e41:.3e} (tol {SEG_TOL}); vs plain nrmse "
+            f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (tol {KERNEL_TOL}); repeat "
+            f"bitwise {rep}")
+        for k, same in rep.items():
+            require(same, f"repeat {k}-kernel run is not bitwise equal: {name}")
+        require(e41 <= SEG_TOL, f"seg vs tile kernel {name}: nrmse {e41:.3e}")
         for k, v in errs.items():
             require(v <= KERNEL_TOL, f"{k} kernel vs plain {name}: nrmse {v:.3e}")
         return float((seg - culled).abs().max())
@@ -687,20 +731,23 @@ def main() -> int:
     seg_plain_ms = 1e3 * (ts[0] + ts[5]) / 2
     seg_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, windowed=False), 50)
+    seg_passes = device_passes(segk)
+    seg_dev_ms = sum(seg_passes.values()) / 1e3
     log("seg", f"one whole-body frame (nxos 512, 6 coils, 204 spokes): seg kernel {seg_ms:.4f} ms, tile "
         f"kernel {1e3 * (ts[1] + ts[4]) / 2:.4f} ms, culled plain {seg_plain_ms:.4f} ms "
         f"(plain, tile, seg, seg, tile, plain: {[round(1e3 * t, 4) for t in ts]}); 42-spoke delta "
-        f"seg kernel {seg_delta_ms:.4f} ms on {card}")
+        f"seg kernel {seg_delta_ms:.4f} ms; device us per pass: "
+        f"{ {k: round(v, 2) for k, v in seg_passes.items()} }, sum {1e3 * seg_dev_ms:.2f} us "
+        f"(PERF.md: the per-pixel kernel it replaced took 0.6798 ms) on {card}")
+    require(len(seg_passes) == 4, f"profiler saw the seg kernel's passes {sorted(seg_passes)}")
 
-    # -- 17 batched: the static-unroll gridding kernel (tuning.batched) -------
+    # -- 17 batched: the tensor-core gridding kernel (tuning.batched, B5) -----
     for kwb in (1.5, 2.0, 3.0):
         bb = kb_beta(kwb, 2.0)
         for lname, nxos, nro in (("integer radii, nxos 512", 512, None),
                                  ("lattice nro 512, nxos 384 (gridos 1.5)", 384, 512),
                                  ("lattice nro 512, nxos 640 (gridos 2.5)", 640, 512)):
-            rpu = 1.0 if nro is None else nro / nxos
-            name = (f"kw {kwb} {lname}, 6 coils, 204 spokes, NSLOT {grid_cuda.pick_nslot(kwb, rpu)} "
-                    f"(row bound {grid_cuda.row_bound(kwb, rpu)})")
+            name = f"kw {kwb} {lname}, 6 coils, 204 spokes"
             if nro is None:
                 three_checks("batched", name, wb_planes, wb_ang, nxos, kwb, bb, None)
             else:
@@ -721,10 +768,15 @@ def main() -> int:
     bat_plain_ms = 1e3 * (tb[0] + tb[5]) / 2
     bat_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, tuning=bt), 50)
+    bat_passes = device_passes(batk)
+    bat_dev_ms = sum(bat_passes.values()) / 1e3
     log("batched", f"one whole-body frame: batched kernel {bat_ms:.4f} ms, tile kernel "
         f"{1e3 * (tb[1] + tb[4]) / 2:.4f} ms, plain {bat_plain_ms:.4f} ms (plain, tile, batched, "
         f"batched, tile, plain: {[round(1e3 * t, 4) for t in tb]}); 42-spoke delta batched kernel "
-        f"{bat_delta_ms:.4f} ms on {card}")
+        f"{bat_delta_ms:.4f} ms; device us per pass: "
+        f"{ {k: round(v, 2) for k, v in bat_passes.items()} }, sum {1e3 * bat_dev_ms:.2f} us "
+        f"(PERF.md: the per-pixel kernel it replaced took 0.8377 ms) on {card}")
+    require(len(bat_passes) == 4, f"profiler saw the batched kernel's passes {sorted(bat_passes)}")
 
     # -- 18 stream: tron-torch --stream on the whole-body series --------------
     half_ref = recon_radial2d(indata, cfg, half_readback=True, device=dev)[:, 0]
@@ -825,9 +877,9 @@ def main() -> int:
         require(rc == 0, f"profiled --stream: exit {rc}")
         ka = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in ka) / 1e6
-        # every gridding kernel's passes: the tile kernel's grid_tile_*, the
-        # per-pixel grid_radial2d_kernel (batched) and grid_seg_radial2d_kernel
-        gridding = re.compile(r"grid_tile_\w+_kernel|(?<!de)grid_radial2d_kernel|grid_seg_radial2d_kernel")
+        # every gridding kernel's passes: grid_tile_* (B1, B5, and the items
+        # and reduce passes of B4) and grid_seg_* (B4)
+        gridding = re.compile(r"grid_(?:tile|seg)_\w+?_kernel")
         grid_s = sum(e.self_device_time_total for e in ka if gridding.search(e.key)) / 1e6
         log("stream", f"alone: loader (read {len(z0s)} blocks of {nblk} spokes, transpose into pinned) "
             f"{t_load:.3f} s; frames on device-resident data {t_comp:.3f} s (dispatch {t_disp:.3f} s); "
@@ -850,6 +902,19 @@ def main() -> int:
             f"{r['nrmse_vs_plain']:.3e} on {card}")
         require(r["kernel"] == kernel, f"kbench {name} ran {r['kernel']}, expected {kernel}")
         require(r["nrmse_vs_plain"] <= KERNEL_TOL, f"kbench {name}: nrmse {r['nrmse_vs_plain']:.3e}")
+        # where a kbench frame's device time goes: every kernel of one pass
+        # over its frames in the profiler, the gridding passes apart
+        kfn, _, _ = kbench.make_case(kbench.build_parser().parse_args(argv), dev)
+        nf = r["frames"]
+        frame = itertools.cycle(range(nf))
+        per = device_passes(lambda: kfn(next(frame)), n=nf, rx=re.compile(r".+"))
+        busy_us = sum(per.values())
+        grid_us = sum(v for k, v in per.items() if grid_pass.search(k))
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+        log("kbench", f"{name}: card busy {busy_us:.2f} us per frame of {1e3 * r['ms_per_frame']:.2f} "
+            f"us ({100 * busy_us / (1e3 * r['ms_per_frame']):.1f} %), gridding passes {grid_us:.2f} "
+            f"us, {len(per)} kernels; most: { {k[:48]: round(v, 2) for k, v in top} } on {card}")
+        del kfn
 
     g_bound, g_by = grid_bound(wb_planes, wb_ang, 512)
     d_bound, d_by = degrid_bound(kg, dang, NRO)
@@ -877,6 +942,7 @@ def main() -> int:
             "launches": launches + cg_grid + stream_b1,
             "max_abs_err": err512,
             "ms": kern_ms,
+            "kernel_ms": kern_dev_ms,
             "plain_ms": plain_ms,
             **common,
         },
@@ -887,6 +953,7 @@ def main() -> int:
             "launches": stream_b5,
             "max_abs_err": bat_err,
             "ms": bat_ms,
+            "kernel_ms": bat_dev_ms,
             "plain_ms": bat_plain_ms,
             **common,
         },
@@ -897,6 +964,7 @@ def main() -> int:
             "launches": kb["--no-windowed"]["launches"]["grid_seg_radial2d"],
             "max_abs_err": seg_err,
             "ms": seg_ms,
+            "kernel_ms": seg_dev_ms,
             "plain_ms": seg_plain_ms,
             **common,
         },

@@ -168,16 +168,20 @@ def test_degrid_wrapper_raises_on_bad_input(dev):
 @pytest.mark.parametrize(
     "nxos,C,npe,scheme",
     [(64, 1, 8, "golden"), (100, 3, 17, "golden"), (384, 3, 30, "linear_half"),
-     (512, 6, 204, "golden"), (128, 10, 1500, "golden")],
+     (512, 6, 204, "golden"), (128, 10, 1500, "golden"), (8, 1, 5, "golden"),
+     (36, 2, 11, "golden"), (40, 2, 12, "golden")],
 )
 def test_seg_and_batched_kernels_equal_loop_kernel(dev, exact, kw, nxos, C, npe, scheme):
-    """The tile-culled kernel (windowed=False, B4) and the static-unroll
-    kernel (tuning.batched, B5) run the same per-pixel code and are bitwise
-    equal: culling drops only zero terms and a masked slot adds fmaf(0, s,
-    acc).  The default tile kernel (B1) sums the same terms regrouped by
-    work item: within 1e-6 NRMSE of B4.  Each is within 1e-5 of its plain
-    version.  Partial tiles (nxos 100), split tiles and long spoke lists
-    (1500), two channel blocks (C 10), signed data, both lattices."""
+    """The segmented kernel (windowed=False, B4) sums the default tile
+    kernel's (B1) nonzero fp32 terms in its order, regrouped only at work
+    items: within 1e-6 NRMSE of B1.  The tensor-core kernel (tuning.batched,
+    B5) contracts every row as 3xTF32 products: within 1e-5 of the plain
+    version, as B1 and B4 are of theirs.  No atomics: each repeat run gives
+    the same bits.  Partial tiles (nxos 100), split tiles and long spoke
+    lists (1500), two channel blocks (C 10), an odd coil count (3), signed
+    data, both lattices; segment lengths that are not multiples of 8 (nxos
+    8, 36, 40: 3-20 rows, odd lattices of 27 and 75 rows), down to more
+    than 32 segments per stage (seg 3)."""
     from tron_tpu_torch.config import KernelTuning
     from tron_tpu_torch.ops.degrid import lattice_radii
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_culled
@@ -189,19 +193,21 @@ def test_seg_and_batched_kernels_equal_loop_kernel(dev, exact, kw, nxos, C, npe,
     planes[: npe // 2] *= -1
     ang = spoke_angles(npe, scheme, 19000 if scheme == "golden" else 0, device=dev)
     rad = lattice_radii(nR, nxos, dev) if exact else None
+    bt = KernelTuning(batched=True)
     counts = dict(grid_cuda.LAUNCH_COUNTS)
     tile = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, None)
     seg = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, False, None)
-    batched = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, KernelTuning(batched=True))
+    seg2 = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, False, None)
+    batched = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, bt)
+    batched2 = grid_cuda._launch(planes, ang, nxos, kw, beta, rad, True, bt)
     torch.cuda.synchronize()
-    assert torch.equal(seg, batched)
-    assert _nrmse(tile, seg) <= 1e-6
-    for k in grid_cuda.KERNELS:
-        assert grid_cuda.LAUNCH_COUNTS[k] == counts[k] + 1
+    assert torch.equal(seg, seg2) and torch.equal(batched, batched2)
+    assert _nrmse(seg, tile) <= 1e-6
+    assert [grid_cuda.LAUNCH_COUNTS[k] - counts[k] for k in grid_cuda.KERNELS] == [1, 2, 2]
     culled = grid_radial2d_planes_culled(planes, ang, nxos, kw, beta, rad=rad)
     # the planes gridder at the lattice's row radii is the culled one (equal
-    # to 1e-6, tests/test_torch_cull.py); on integer radii the plain planes
-    # gridder
+    # to 1e-6, tests/test_torch_seg_tiles.py); on integer radii the plain
+    # planes gridder
     plain = culled if exact else grid_radial2d_planes_plain(planes, ang, nxos, kw, beta)
     assert _nrmse(seg, culled) <= TOL
     assert _nrmse(batched, plain) <= TOL
@@ -221,14 +227,19 @@ def test_tile_kernel_raises_beyond_its_weight_windows(dev):
 
 
 @pytest.mark.gpu
-def test_batched_wrapper_raises_beyond_its_slots(dev):
+@pytest.mark.parametrize("kernel", ["batched", "seg"])
+def test_batched_and_seg_wrappers_raise_beyond_their_weight_windows(dev, kernel):
+    """B5 and B4 read B1's weight table: they take kernwidth < 7 as B1 does
+    (the per-pixel row slots and their limit are gone), and raise beyond."""
     from tron_tpu_torch.config import KernelTuning
 
+    opts = {"tuning": KernelTuning(batched=True)} if kernel == "batched" else {"windowed": False}
     planes = torch.zeros((4, 64, 2), device=dev)
     ang = spoke_angles(4, "golden", 0, device=dev)
-    with pytest.raises(ValueError, match="row slots"):
-        grid_cuda.grid_radial2d_planes(planes, ang, 64, 5.0, kb_beta(5.0, 2.0),
-                                       tuning=KernelTuning(batched=True))
+    grid_cuda.grid_radial2d_planes(planes, ang, 64, 5.0, kb_beta(5.0, 2.0), **opts)
+    with pytest.raises(ValueError, match="kernwidth"):
+        grid_cuda.grid_radial2d_planes(planes, ang, 64, grid_cuda.MAX_KERNWIDTH,
+                                       kb_beta(grid_cuda.MAX_KERNWIDTH, 2.0), **opts)
 
 
 @pytest.mark.gpu

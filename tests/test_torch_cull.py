@@ -1,15 +1,12 @@
-"""Per-tile spoke culling (tron_tpu_torch.ops.cull) and the tile-culled
+"""B4's wedge culling (tron_tpu_torch.ops.cull.seg_hits) and the culled
 plain gridder, the plain version of the CUDA kernel that replaces B4
 `_seg_kernel`, on the CPU.
 
 The culled gridder is held to the JAX package's `_seg_kernel` in interpret
 mode (as tests/test_grid_pallas.py:46-62 runs it) and to the port's own
-planes gridder; the culling test is proved conservative against the plain
-gridder's own KB terms.  The bound on the rows of one (pixel, spoke) band,
-which sizes the static-unroll kernel (B5), is checked by brute force.
+planes gridder; the culling is proved conservative against the plain
+gridder's own KB terms.  Its segments and items: tests/test_torch_seg_tiles.py.
 """
-
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -132,97 +129,42 @@ def _needed(angles, rr, nxos, tile, kw, beta):
 )
 def test_culling_is_conservative(nxos, npe, kw, exact, seed):
     """Every spoke that gives any nonzero KB term to any pixel of a tile is
-    in that tile's hit list (integer radii and an exact lattice)."""
+    listed for that tile, for one radius sign or both (integer radii and
+    an exact lattice)."""
     rng = np.random.default_rng(seed)
     angles = torch.from_numpy(rng.uniform(0, 2 * np.pi, npe).astype(np.float32))
     beta = kb_beta(kw, 2.0)
+    nR = int(rng.integers(16, 2 * nxos)) if exact else None
     if exact:
-        rr = lattice_radii(int(rng.integers(8, 2 * nxos)), nxos)[1:]
+        rr = lattice_radii(nR, nxos)[1:]
     else:
         rr = (torch.arange(1, nxos) - nxos // 2).to(torch.float32)
-    hits = cull.tile_hits(angles, nxos, kw)
+    _, nonempty, _ = cull.tile_segments(nxos, kw, nR)
+    hits = cull.seg_hits(angles, nxos, kw, nonempty).any(2)
     need = _needed(angles, rr, nxos, cull.TILE, kw, beta)
     assert hits.shape == need.shape
     assert not (need & ~hits).any()
 
 
 def test_culling_culls_and_lists_are_ordered():
-    """At the whole-body geometry a far tile keeps a few spokes, the centre
-    tiles keep all, and each list holds its hits in ascending order."""
+    """At the whole-body geometry a far tile on the rim of the gridded disc
+    (its band not empty) keeps a few spokes, each by one sign only, the
+    centre tiles keep all for both signs, and each tile's list holds its
+    segments in ascending spoke order, a spoke's negative-radius segment
+    first."""
     angles = torch.from_numpy(np.asarray(jangles(204, "golden", 19000)))
-    hits = cull.tile_hits(angles, 512, KW)
-    counts, lists = cull.hit_lists(hits)
-    assert counts.shape == (32, 32) and lists.shape == (32, 32, 204)
-    assert int(counts[15, 15]) == 204 and int(counts[0, 0]) < 20
+    starts, nonempty, seg = cull.tile_segments(512, KW)
+    hits = cull.seg_hits(angles, 512, KW, nonempty)
+    assert hits.shape == (32, 32, 2, 204)
+    counts = hits.any(2).sum(-1)
+    assert int(hits[15, 15].sum()) == 408
+    for t in [(4, 4), (1, 15), (15, 0)]:
+        assert nonempty[t].all()
+        assert 0 < int(counts[t]) < 20 and int(hits[t].sum()) == int(counts[t])
     assert float(counts.float().mean()) < 0.2 * 204
-    for i, j in [(0, 0), (3, 17), (15, 16), (31, 2)]:
-        n = int(counts[i, j])
-        lst = lists[i, j, :n]
-        assert torch.equal(lst, torch.nonzero(hits[i, j]).flatten())
-    cy, cx, d = cull.tile_geometry(100)
-    assert cy.shape == (7, 7) and float(d[-1, -1]) == pytest.approx(math.hypot(1.5, 1.5))
-
-
-def _band_rows(X, Y, c, s, kw, nxos, rows_per_unit, exact):
-    """The kernel's widened row band (csrc/grid_radial2d.cuh:span_band at one pixel) in
-    float32, vectorised over pixels and spokes: its row count."""
-    f = np.float32
-    kw = f(kw)
-    h = nxos // 2
-    with np.errstate(divide="ignore", invalid="ignore"):
-        ic = np.where(c != 0, f(1) / c, f(0)).astype(f)
-        is_ = np.where(s != 0, f(1) / s, f(0)).astype(f)
-    if exact:
-        lo = np.full(np.broadcast(X, c).shape, -f(nxos), f)
-        hi = np.full_like(lo, f(nxos))
-    else:
-        lo = np.full(np.broadcast(X, c).shape, f(1 - h), f)
-        hi = np.full_like(lo, f(nxos - 1 - h))
-    for p, inv in ((X, ic), (Y, is_)):
-        a = ((p - kw) * inv).astype(f)
-        b = ((p + kw) * inv).astype(f)
-        m = inv != 0
-        lo = np.where(m, np.maximum(lo, np.minimum(a, b)), lo)
-        hi = np.where(m, np.minimum(hi, np.maximum(a, b)), hi)
-    if exact:
-        nR = int(round(nxos * rows_per_unit))
-        u0 = np.maximum(np.floor(lo * f(rows_per_unit) + f(nR / 2)) - 1, 1)
-        u1 = np.minimum(np.ceil(hi * f(rows_per_unit) + f(nR / 2)) + 1, nR - 1)
-    else:
-        u0 = np.maximum(np.floor(lo) - 1, 1 - h)
-        u1 = np.minimum(np.ceil(hi) + 1, nxos - 1 - h)
-    return np.where(u0 <= u1, u1 - u0 + 1, 0)
-
-
-@pytest.mark.parametrize(
-    "kw,nxos,nR",
-    [(1.5, 256, 256), (2.0, 256, 256), (3.0, 256, 256), (2.0, 192, 256), (3.0, 192, 256),
-     (2.0, 320, 256)],
-)
-def test_row_bound_covers_the_longest_band(kw, nxos, nR):
-    """``row_bound`` vs the brute-force longest band of the kernel's own
-    fp32 band arithmetic over every pixel and 600 spokes (integer radii
-    and the exact lattice at gridos 1.5, 2 and 2.5); the bound is tight to
-    within two rows."""
-    exact = nR != nxos
-    rpu = nR / nxos
-    rng = np.random.default_rng(int(10 * kw) + nxos)
-    ang = np.concatenate([rng.uniform(0, 2 * np.pi, 590), np.arange(10) * np.pi / 4])
-    c = np.cos(ang.astype(np.float32)).astype(np.float32)
-    s = np.sin(ang.astype(np.float32)).astype(np.float32)
-    coord = (np.arange(nxos) - nxos // 2).astype(np.float32)
-    longest = 0
-    for y in coord[:: max(1, nxos // 64)]:
-        rows = _band_rows(coord[:, None], np.float32(y), c[None, :], s[None, :], kw, nxos, rpu, exact)
-        longest = max(longest, int(rows.max()))
-    bound = grid_cuda.row_bound(kw, rpu)
-    assert longest <= bound <= longest + 2
-    assert grid_cuda.pick_nslot(kw, rpu) >= bound
-
-
-def test_pick_nslot_raises_beyond_the_built_slots():
-    assert grid_cuda.pick_nslot(2.0) == 10
-    assert grid_cuda.pick_nslot(2.0, 512 / 384) == 12
-    assert grid_cuda.pick_nslot(3.0) == 16
-    with pytest.raises(ValueError, match="row slots"):
-        grid_cuda.pick_nslot(5.0)
+    entries = cull.seg_entries(hits, starts)
+    for i, j in [(1, 1), (3, 17), (15, 16), (31, 2)]:
+        ent = entries[i * 32 + j]
+        assert len(ent) == int(hits[i, j].sum())
+        keys = [(p, 0 if u == starts[i, j, 1] and hits[i, j, 1, p] else 1) for p, u in ent]
+        assert keys == sorted(keys) and len(set(keys)) == len(keys)

@@ -168,8 +168,8 @@ def test_from_jax_fields_carries_batched(monkeypatch, batched):
 
 
 def test_batched_planes_match_pallas_win_kernel_batched():
-    """The planes path under tuning.batched (the static-unroll kernel's
-    CPU route: its plain version, the planes gridder) vs JAX's
+    """The planes path under tuning.batched (the tensor-core kernel's CPU
+    route: its plain version, the planes gridder) vs JAX's
     `_win_kernel_batched` in interpret mode, float32, nxos 256, C 2, npe 12."""
     from tron_tpu.config import KernelTuning as JaxTuning
     from tron_tpu_torch.config import KernelTuning
@@ -214,7 +214,7 @@ def test_launch_counts_per_kernel():
 
 @pytest.mark.parametrize("nxos", [64, 100])
 def test_complex_entry_windowed_false_on_cpu(nxos):
-    """windowed=False takes the tile-culled plain gridder on a CPU tensor
+    """windowed=False takes the segmented plain gridder on a CPU tensor
     (any nxos; JAX's `_seg_kernel` needs two 128-wide tiles)."""
     d = torch.from_numpy(_data(9, 2, 10, nxos, signed=True))
     ang = torch.from_numpy(_angles(10, 11))

@@ -1,15 +1,19 @@
 """The tile decomposition of the port's default gridding kernel
 (`tron_tpu_torch/csrc/grid_radial2d.cu`, which replaces B1 `_win_kernel` and
-B2 `_grid_kernel`), on the CPU.
+B2 `_grid_kernel`) and of its tensor-core variant
+(`csrc/grid_radial2d_batched.cu`, which replaces B5 `_win_kernel_batched`),
+on the CPU.
 
-The kernel runs only on the card; its decomposition is held here through
-torch twins of its first two passes (`ops/cull.tile_bands`, pass 1's tile
-bands, and `ops/cull.work_items`, pass 2's items) and a torch model of its
-contraction (below, used only by these tests): per tile, per item, the
-items' sums added in order.  The twin is proved conservative against the
-plain gridder's own KB terms, the items against the rows they cut, and the
-model against the plain gridder and JAX's `grid_radial2d_pallas` in
-interpret mode (as tests/test_grid_pallas.py runs it).
+The kernels run only on the card; their decomposition is held here through
+torch twins of their first two passes (`ops/cull.tile_bands`, pass 1's tile
+bands, and `ops/cull.work_items`, pass 2's items) and torch models of their
+contractions (below, used only by these tests): per tile, per item, the
+items' sums added in order; for B5 each item's rows in static 8-row
+k-steps of split TF32 products (3xTF32, TF32 emulated by rounding to 10
+mantissa bits).  The twin is proved conservative against the plain
+gridder's own KB terms, the items against the rows they cut, and the models
+against the plain gridder and JAX's `grid_radial2d_pallas` in interpret
+mode (as tests/test_grid_pallas.py runs it).
 """
 
 import jax.numpy as jnp
@@ -21,8 +25,10 @@ from hypothesis import strategies as st
 
 from tests.conftest import nrmse
 from tron_tpu.config import AngleScheme as JAngleScheme
+from tron_tpu.config import KernelTuning as JKernelTuning
 from tron_tpu.ops import grid_pallas as jgrid_pallas
 from tron_tpu.trajectory import spoke_angles as jangles
+from tron_tpu_torch.config import KernelTuning
 from tron_tpu_torch.kernels.kb import kb_beta, kb_kernel
 from tron_tpu_torch.ops import cull, grid, grid_cuda
 from tron_tpu_torch.ops.degrid import lattice_radii
@@ -235,6 +241,139 @@ def test_tiled_model_matches_jax_exact_lattice():
     got = tiled_grid(planes, torch.from_numpy(ang), nxos, 2.0, beta,
                      rad=lattice_radii(nro, nxos), item_rows=64)
     assert nrmse(got.numpy(), want) <= TOL
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: x rounded to TF32's 10 mantissa bits, to
+    nearest with ties away from zero (half a TF32 ulp added to the
+    magnitude bits, the 13 bits below cleared)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    """x = hi + lo, each a TF32 value (B5's operand split)."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def mma_tiled_grid(planes, angles, nxos, kw, beta, rad=None, item_rows=256, passes=3):
+    """A torch model of B5's pass 3: per tile and item, rows staged in chunks
+    of 128, each padded to a multiple of 32 with zero rows (every row
+    contracted, none skipped), then static 8-row k-steps of the product
+    A^T U, A = the x-weights at the tile's 16 columns, U = s (x) y-weights
+    formed in fp32, N = (tile row, channel).  ``passes`` 3: the 3xTF32
+    split, hi*lo, lo*hi, hi*hi accumulated in fp32 in that order; 1: one
+    TF32 product.  Items' sums added in order; (C, nxos, nxos) complex64
+    scaled by 1/(nxos*npe)."""
+    npe, nR, K = planes.shape
+    T = cull.TILE
+    exact = rad is not None
+    rr = rad if exact else _radii(nxos, nR, False)
+    first, last = cull.tile_bands(angles, nxos, kw, nR if exact else None)
+    items = cull.work_items(first, last, item_rows)
+    ct, st_ = torch.cos(angles), torch.sin(angles)
+    ntx = first.shape[1]
+    coord = (torch.arange(ntx * T) - nxos // 2).to(torch.float32)
+    out = planes.new_zeros((K, ntx * T, ntx * T))
+    for t, its in enumerate(items):
+        i, j = divmod(t, ntx)
+        ys, xs = slice(i * T, (i + 1) * T), slice(j * T, (j + 1) * T)
+        spoke, row = _rows(first, last, i, j)
+        r = rr[row]
+        A = kb_kernel(r[:, None] * ct[spoke, None] - coord[xs], kw, beta)   # (rows, 16 x)
+        wy = kb_kernel(r[:, None] * st_[spoke, None] - coord[ys], kw, beta)  # (rows, 16 y)
+        U = (wy[:, :, None] * planes[spoke, row][:, None, :]).reshape(-1, T * K)
+        acc = planes.new_zeros((T, T * K))
+        for a, b in its:
+            part = planes.new_zeros((T, T * K))
+            for q0 in range(a, b, 128):
+                n = min(128, b - q0)
+                m = -(-n // 32) * 32
+                Ac = torch.nn.functional.pad(A[q0:q0 + n], (0, 0, 0, m - n)).reshape(-1, 8, T)
+                Uc = torch.nn.functional.pad(U[q0:q0 + n], (0, 0, 0, m - n)).reshape(-1, 8, T * K)
+                ah, al = _split(Ac)
+                bh, bl = _split(Uc)
+                terms = ([torch.einsum("skx,skn->sxn", ah, bl), torch.einsum("skx,skn->sxn", al, bh)]
+                         if passes == 3 else [])
+                terms.append(torch.einsum("skx,skn->sxn", ah, bh))
+                for s in range(Ac.shape[0]):
+                    for p in terms:
+                        part = part + p[s]
+            acc = acc + part
+        out[:, ys, xs] = acc.reshape(T, T, K).permute(2, 1, 0)
+    out = out[:, :nxos, :nxos] * (1.0 / (nxos * npe))
+    return torch.view_as_complex(out.reshape(K // 2, 2, nxos, nxos).permute(0, 2, 3, 1).contiguous())
+
+
+def test_tf32_rounds_to_ten_mantissa_bits():
+    """The emulated cvt.rna.tf32: 10 mantissa bits, ties away from zero, and
+    a split whose hi + lo holds x to about 2^-21."""
+    x = torch.tensor([1.0 + 2**-11, 1.0 + 2**-10 + 2**-11, -(1.0 + 2**-11), 1.0 + 2**-12, 3.0])
+    assert _tf32(x).tolist() == [1.0 + 2**-10, 1.0 + 2**-9, -(1.0 + 2**-10), 1.0, 3.0]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(1000, dtype=np.float32))
+    hi, lo = _split(y)
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2**-21
+    assert float(((hi - y).abs() / y.abs()).max()) > 2**-13
+
+
+@pytest.mark.parametrize(
+    "nxos,C,npe,exact,kw,item_rows",
+    [(64, 1, 8, False, 2.0, 256), (100, 3, 17, False, 2.0, 40), (128, 2, 30, True, 2.0, 64),
+     (96, 2, 12, False, 1.5, 16), (80, 1, 10, True, 3.0, 300)],
+)
+def test_mma_model_matches_fp32_model_and_plain(nxos, C, npe, exact, kw, item_rows):
+    """B5's 3xTF32 contraction is float32-grade: within 1e-6 NRMSE of the
+    fp32 tile model and of the plain gridder, where one TF32 pass alone is
+    off by more than 1e-5.  Split tiles (short items), chunks padded to 32
+    rows (item_rows 300: a 128-row chunk and a 44-row one), partial edge
+    tiles, the exact lattice."""
+    beta = kb_beta(kw, 2.0)
+    rng = np.random.default_rng(nxos + npe + 1)
+    nR = nxos * 3 // 4 if exact else nxos
+    planes = torch.from_numpy(rng.standard_normal((npe, nR, 2 * C), dtype=np.float32))
+    planes[: npe // 2] *= -1
+    angles = torch.from_numpy(np.asarray(jangles(npe, "golden", 19000 + nxos)))
+    rad = lattice_radii(nR, nxos) if exact else None
+    got = mma_tiled_grid(planes, angles, nxos, kw, beta, rad=rad, item_rows=item_rows)
+    fp32 = tiled_grid(planes, angles, nxos, kw, beta, rad=rad, item_rows=item_rows)
+    if exact:
+        d = torch.view_as_complex(planes.reshape(npe, nR, C, 2).permute(2, 0, 1, 3).contiguous())
+        want = grid.grid_radial2d(grid.drop_readout0(d), angles, nxos, kw, beta, raw_rows=True)
+    else:
+        want = grid.grid_radial2d_planes_plain(planes, angles, nxos, kw, beta)
+    assert nrmse(got.numpy(), fp32.numpy()) <= 1e-6
+    assert nrmse(got.numpy(), want.numpy()) <= 1e-6
+    one = mma_tiled_grid(planes, angles, nxos, kw, beta, rad=rad, item_rows=item_rows, passes=1)
+    assert nrmse(one.numpy(), want.numpy()) > 1e-5
+
+
+@pytest.mark.parametrize(
+    "C,npe,nxos,scheme,skip",
+    [(2, 12, 256, JAngleScheme.GOLDEN, 20055), (1, 16, 256, JAngleScheme.LINEAR_HALF, 0)],
+)
+def test_batched_plain_matches_jax_batched_kernel(C, npe, nxos, scheme, skip):
+    """The port's B5 path on the CPU (the wrapper with tuning.batched takes
+    the plain gridder for a CPU tensor) and the model of its 3xTF32
+    contraction vs JAX's `_win_kernel_batched` (KernelTuning(batched=True),
+    float32, interpret mode), from the same complex samples: within 1e-5."""
+    rng = np.random.default_rng(npe + nxos + 2)
+    d = (rng.standard_normal((C, npe, nxos)) + 1j * rng.standard_normal((C, npe, nxos))).astype(np.complex64)
+    d[:, : npe // 2] *= -1
+    ang = np.asarray(jangles(npe, scheme, skip))
+    beta = kb_beta(2.0, 2.0)
+    want = np.asarray(
+        jgrid_pallas.grid_radial2d_pallas(
+            jnp.asarray(d), jnp.asarray(ang), nxos, 2.0, beta, pe_chunk=4, tile=128,
+            matmul_dtype="float32", interpret=True, tuning=JKernelTuning(batched=True),
+        )
+    )
+    got = grid_cuda.grid_radial2d(torch.from_numpy(d), torch.from_numpy(ang), nxos, 2.0, beta,
+                                  tuning=KernelTuning(batched=True))
+    assert nrmse(got.numpy(), want) <= TOL
+    planes = grid_cuda.to_sample_planes(torch.from_numpy(d), nxos)
+    model = mma_tiled_grid(planes, torch.from_numpy(ang), nxos, 2.0, beta, item_rows=48)
+    assert nrmse(model.numpy(), want) <= TOL
 
 
 def test_whole_body_decomposition():

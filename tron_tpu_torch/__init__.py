@@ -4,7 +4,7 @@ beside it, which stays the reference).
 The golden-angle sliding-window adjoint recon (in memory or streamed from
 disk), the forward operator and the CGNR solver run here, with adjoint
 gridding and forward degridding in hand-written CUDA kernels (`csrc/`: the
-loop gridder, its static-unroll variant, the tile-culled gridder and the
+tile gridder, its tensor-core variant, the segmented gridder and the
 degridder) and the rest in plain torch.  Module names follow tron_tpu's, so each
 module's counterpart is the file of the same name there.  This package
 imports torch and never JAX.

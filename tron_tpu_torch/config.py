@@ -45,9 +45,9 @@ class KernelTuning:
     None resolves through ``from_env`` at each call, so a clean environment
     gives these defaults."""
 
-    # batched-eval gridding: the static-unroll per-pixel gridding kernel
-    # (B5 `_win_kernel_batched`), equal to the default tile kernel up to the
-    # grouping of its fp32 sums
+    # batched-eval gridding: the tile gridding kernel with its contraction a
+    # static unroll on tensor cores (B5 `_win_kernel_batched`, 3xTF32),
+    # float32-grade like the default tile kernel
     batched: bool = False
 
     @classmethod

@@ -1,16 +1,10 @@
-// Device code shared by the three gridding kernels:
-//   - grid_tile_*_kernel (csrc/grid_radial2d.cu; B1 _win_kernel and B2
-//     _grid_kernel): the per-tile contraction over load-balanced work items,
-//     whose tile bands are span_band below over a tile's pixel span;
-//   - grid_radial2d_kernel<KP, LATTICE, NSLOT>: the per-pixel gather with a
-//     static unroll over NSLOT row slots (csrc/grid_radial2d_batched.cu; B5
-//     _win_kernel_batched);
-//   - grid_seg_radial2d_kernel (csrc/grid_seg_radial2d.cu; B4 _seg_kernel),
-//     the per-pixel gather over a tile's culled spoke list.
-// The two per-pixel kernels evaluate one (pixel, spoke) pair with
-// grid_spoke below, so they sum the same terms in the same order and give
-// the same output bits; the tile kernel sums the same terms with the same
-// weights, regrouped by work item.
+// Device code shared by the three gridding kernels (csrc/grid_radial2d.cu,
+// B1 _win_kernel and B2 _grid_kernel; csrc/grid_radial2d_batched.cu, B5
+// _win_kernel_batched; csrc/grid_seg_radial2d.cu, B4 _seg_kernel): the
+// contract below, the band of one spoke over a pixel span (span_band), the
+// store of a channel block, and the argument checks.  Their tile machinery
+// (workspace, passes 1, 2 and 4, pass 3's staging and FMA walk) is in
+// grid_tiles.cuh.
 //
 // The contract (tron_tpu/ops/grid_pallas.py):
 //
@@ -27,13 +21,11 @@
 //     degridding kernel reads, so the two stay one adjoint pair; u >= 1
 //     (readout 0 is never gridded).
 //
-// In the per-pixel kernels each thread owns pixel (Y, X) and keeps the
-// real channel sums of one channel block in registers (12 at the
-// whole-body geometry: 6 coils, re and im).  Per spoke it computes the
-// radius band where |r cos t - X| < kw and |r sin t - Y| < kw, converts it
-// to rows and widens it by one row on each side so that fp32 rounding of
-// the band edges never drops a term; KB's own support test (|x| < kw,
-// kernels/kb.py) then decides each term exactly as the plain version does.
+// A pixel's band of one spoke is the radius band where |r cos t - X| < kw
+// and |r sin t - Y| < kw, converted to rows and widened by one row on each
+// side so that fp32 rounding of the band edges never drops a term; KB's own
+// support test (|x| < kw, kernels/kb.py) then decides each term exactly as
+// the plain version does.
 
 #pragma once
 
@@ -49,10 +41,9 @@ namespace {
 constexpr int kBlockX = 16;
 constexpr int kBlockY = 16;
 constexpr int kThreads = kBlockX * kBlockY;
-constexpr int kSpokeChunk = 1024;  // spokes staged in shared memory per pass
 constexpr int kMaxChannels = 16;   // real channels per register block
 
-// What one thread needs to know about its pixel and the launch.
+// A pixel (or a tile's first pixel) and the launch's KB and lattice.
 struct Pixel {
   float X, Y;                       // coordinates relative to the centre
   float kw, inv_kw, amp, beta;      // KB
@@ -125,64 +116,6 @@ __device__ __forceinline__ void span_band(const Pixel& px, float X1, float Y1,
   }
 }
 
-// Add spoke pe's terms at the pixel to acc (channels k0 .. k0+kn-1).
-//   NSLOT == 0: a loop over the band's rows that skips a row as soon as one
-//     of its two weights is 0 (B4's per-pixel code);
-//   NSLOT > 0: a static unroll over NSLOT row slots (B5): slot j grids row
-//     a + j with the row index clamped into the plane, and its weight is
-//     multiplied by a 0/1 mask (a + j <= b); nothing is skipped.  A masked
-//     or out-of-support slot adds fmaf(0, s, acc) == acc, so the sums equal
-//     the loop's (B4's) bit for bit.  The caller guarantees b - a + 1 <= NSLOT.
-template <int KP, bool LATTICE, int NSLOT>
-__device__ __forceinline__ void grid_spoke(const float* __restrict__ planes,
-                                           const float* __restrict__ rad,
-                                           int pe, int k0, int kn, int K,
-                                           float c, float s, float ic, float is,
-                                           const Pixel& px, float (&acc)[KP]) {
-  int a, b;
-  span_band<LATTICE>(px, px.X, px.Y, ic, is, a, b);
-  if (a > b) return;
-  // row u of spoke pe at base + u*K (integer radii: u is the radius r)
-  const float* base =
-      LATTICE ? planes + static_cast<size_t>(pe) * px.nR * K + k0
-              : planes + (static_cast<size_t>(pe) * px.nR + px.h) * K + k0;
-  if constexpr (NSLOT == 0) {
-    for (int u = a; u <= b; ++u) {
-      const float rf = LATTICE ? __ldg(rad + u) : static_cast<float>(u);
-      const float wx = kb_weight(__fsub_rn(__fmul_rn(rf, c), px.X), px.inv_kw,
-                                 px.amp, px.beta);
-      if (wx == 0.0f) continue;
-      const float wy = kb_weight(__fsub_rn(__fmul_rn(rf, s), px.Y), px.inv_kw,
-                                 px.amp, px.beta);
-      if (wy == 0.0f) continue;
-      const float w = wy * wx;
-      const float* sr = base + static_cast<ptrdiff_t>(u) * K;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k < kn) acc[k] = fmaf(w, __ldg(sr + k), acc[k]);
-      }
-    }
-  } else {
-    const int top = LATTICE ? px.nR - 1 : px.rmax;
-#pragma unroll
-    for (int j = 0; j < NSLOT; ++j) {
-      const int u = min(a + j, top);
-      const float m = a + j <= b ? 1.0f : 0.0f;
-      const float rf = LATTICE ? __ldg(rad + u) : static_cast<float>(u);
-      const float wx = kb_weight(__fsub_rn(__fmul_rn(rf, c), px.X), px.inv_kw,
-                                 px.amp, px.beta);
-      const float wy = kb_weight(__fsub_rn(__fmul_rn(rf, s), px.Y), px.inv_kw,
-                                 px.amp, px.beta);
-      const float w = wy * wx * m;
-      const float* sr = base + static_cast<ptrdiff_t>(u) * K;
-#pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k < kn) acc[k] = fmaf(w, __ldg(sr + k), acc[k]);
-      }
-    }
-  }
-}
-
 // Store one channel block of sums as complex64, scaled.
 template <int KP>
 __device__ __forceinline__ void store(float2* __restrict__ out, const float (&acc)[KP],
@@ -195,74 +128,6 @@ __device__ __forceinline__ void store(float2* __restrict__ out, const float (&ac
       out[(static_cast<size_t>(c) * nxos + y) * nxos + x] =
           make_float2(acc[k] * scale, acc[k + 1] * scale);
     }
-  }
-}
-
-// One thread per output pixel, a gather over every spoke in index order;
-// cos/sin and their reciprocals are staged in shared memory in chunks.
-// NSLOT > 0: the static-unroll kernel (B5); NSLOT == 0, a plain row loop
-// per (pixel, spoke), is not launched (B4 runs that code over culled lists).
-template <int KP, bool LATTICE, int NSLOT>
-__global__ void __launch_bounds__(kThreads)
-grid_radial2d_kernel(const float* __restrict__ planes,  // (npe, nR, K)
-                     const float* __restrict__ ct,      // (npe,)
-                     const float* __restrict__ st,      // (npe,)
-                     const float* __restrict__ rad,     // (nR,) or null
-                     float2* __restrict__ out,          // (K/2, nxos, nxos)
-                     int npe, int nR, int nxos, int K, float kw, float beta,
-                     float scale) {
-  __shared__ float s_c[kSpokeChunk];
-  __shared__ float s_s[kSpokeChunk];
-  __shared__ float s_ic[kSpokeChunk];
-  __shared__ float s_is[kSpokeChunk];
-
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const bool active = x < nxos && y < nxos;
-  const Pixel px = make_pixel(x, y, nR, nxos, kw, beta);
-
-  for (int k0 = 0; k0 < K; k0 += KP) {
-    float acc[KP];
-#pragma unroll
-    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
-    const int kn = min(KP, K - k0);
-
-    for (int p0 = 0; p0 < npe; p0 += kSpokeChunk) {
-      const int m = min(kSpokeChunk, npe - p0);
-      __syncthreads();
-      for (int i = tid; i < m; i += kThreads) {
-        const float c = ct[p0 + i];
-        const float s = st[p0 + i];
-        s_c[i] = c;
-        s_s[i] = s;
-        s_ic[i] = c != 0.0f ? 1.0f / c : 0.0f;
-        s_is[i] = s != 0.0f ? 1.0f / s : 0.0f;
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int i = 0; i < m; ++i) {
-        grid_spoke<KP, LATTICE, NSLOT>(planes, rad, p0 + i, k0, kn, K, s_c[i],
-                                       s_s[i], s_ic[i], s_is[i], px, acc);
-      }
-    }
-    if (active) store<KP>(out, acc, k0, kn, nxos, x, y, scale);
-  }
-}
-
-template <int KP, int NSLOT>
-void launch_grid(const float* planes, const float* ct, const float* st,
-                 const float* rad, float2* out, int npe, int nR, int nxos,
-                 int K, float kw, float beta, float scale, cudaStream_t stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((nxos + kBlockX - 1) / kBlockX,
-                  (nxos + kBlockY - 1) / kBlockY);
-  if (rad == nullptr) {
-    grid_radial2d_kernel<KP, false, NSLOT><<<grid, block, 0, stream>>>(
-        planes, ct, st, rad, out, npe, nR, nxos, K, kw, beta, scale);
-  } else {
-    grid_radial2d_kernel<KP, true, NSLOT><<<grid, block, 0, stream>>>(
-        planes, ct, st, rad, out, npe, nR, nxos, K, kw, beta, scale);
   }
 }
 

@@ -1,166 +1,389 @@
-// Adjoint radial gridding as a tile-culled gather: one thread block per
-// 16 x 16 output tile, one thread per pixel, each thread walking only the
-// spokes whose line passes near its tile.
+// Adjoint radial gridding over static radius segments and wedge-culled
+// spoke lists, as a load-balanced tile contraction fed by bulk async copies
+// (the contract is stated in grid_radial2d.cuh).
 //
-// Replaces tron_tpu/ops/grid_pallas.py::_seg_kernel (the segmented MXU
-// gridder with angular-wedge culling, _culling_tables, reached with
-// windowed=False).  Its contract is B1's (grid_radial2d.cuh); its idea is
-// per-tile culling: a spoke takes part only in the tiles its line reaches.
-// This is not the TPU dataflow (per-tile segment operands in VMEM, one MXU
-// contraction per spoke chunk); it is B1's gather with the culling in
-// front of it.
+// Replaces tron_tpu/ops/grid_pallas.py::_seg_kernel (reached with
+// windowed=False): per (tile, radius sign) one static segment of the
+// sample planes (_tile_segments, a start per (tile, sign) and one length
+// for the grid), per frame the spokes whose angular wedge reaches the tile
+// (_culling_tables, cull="geom"), one contraction per (sign, chunk), no
+// short class.  Here, in four passes on the caller's stream:
 //
-// Per chunk of 256 spokes (one per thread):
-//   Phase 1: each thread tests one spoke against the block's tile with the
-//     conservative bound of ops/cull.py: |cx sin t - cy cos t| <= d + reach,
-//     d the tile's half-diagonal over pixel centres, reach = sqrt(2)*kw + 1
-//     (a nonzero term at (X, Y) needs |r c - X| < kw and |r s - Y| < kw, so
-//     the pixel lies within sqrt(2)*kw of the line).  The hits are compacted
-//     into a shared-memory list in ascending spoke index with __ballot_sync,
-//     __popc and a prefix over the block's 8 warps, with their cos, sin and
-//     reciprocals.
-//   Phase 2: each thread runs the per-(pixel, spoke) row loop
-//     (grid_spoke<KP, LATTICE, 0>) over the listed spokes only.
-// A culled spoke adds no nonzero term to any pixel of the tile, and the
-// kept terms are summed in spoke order (spokes ascending, rows ascending),
-// so the output equals the static-unroll kernel's bit for bit.  Any
-// nxos (partial edge tiles), any npe (chunks), both row lattices.
+//   1. lists (one block per 16 x 16 tile): each spoke is tested against
+//      the tile's wedge for both signs, in the Cartesian form of JAX's
+//      test (ops/cull.py:seg_hits, a superset of JAX's hits by the slacks
+//      kCullSlack and kCullSlack2 that cover fp32 rounding), and the hits
+//      are listed in ascending spoke index, the negative-radius segment
+//      (lower rows) first, so the rows of each spoke ascend as in B1.  A
+//      listed entry is one segment, (spoke, first plane row); the tile's
+//      rows are its segments end to end.  The same launch's other blocks fill B1's weight table
+//      (grid_tiles.cuh:weight_rows);
+//   2. items (grid_tiles.cuh): the tiles' rows cut into items of L rows,
+//      L a multiple of the segment length, so an item is whole segments and
+//      a row's (spoke, row) follows by integer division, with no search;
+//      the partial slots are sized from B4's own rows estimate (the wedge
+//      geometry, by the caller), not B1's;
+//   3. contract (one item per block, one channel block per blockIdx.y):
+//      each segment is seg x K contiguous floats of the planes, and its
+//      weight headers and runs are contiguous too.  A producer warp copies
+//      whole segments with cp.async.bulk (the 1-D TMA copy) into a ring of
+//      kStages shared-memory stages, each completing on its mbarrier, and
+//      keeps the next stage in flight while the 8 consumer warps contract
+//      the current one with B1's fp32 FMA walk (grid_tiles.cuh:fma_rows,
+//      its warp-uniform skip of rows that miss a warp's tile rows) and
+//      release it on a second mbarrier.  When the samples are not 16-byte
+//      aligned (an odd coil count: K * 4 = 8 mod 16) the producer copies
+//      them with cp.async and an arrive-on of the same barrier instead;
+//   4. reduce (grid_tiles.cuh): the split tiles' partials, in item order.
 //
-// Cost: the band test now runs per (pixel, listed spoke): at whole-body
-// (nxos 512, 204 spokes) a tile is reached by a few percent of the spokes
-// far from the centre and by all of them at the centre, so the block
-// workload is uneven; the KB evaluations of the hits are grid_spoke's.
-// The culling test itself is one spoke per thread per chunk.
+// A row of a segment outside a pixel's band adds exactly 0 (fmaf(0, s, acc)
+// == acc; row 0 of the planes is never gridded), culled spokes add only
+// zero terms, and each nonzero term lies in exactly one listed segment, so
+// B4 sums B1's nonzero terms in B1's order, regrouped only at item
+// boundaries.  No atomics.
+//
+// Bound: bytes, as B1 (17.6 MB per whole-body frame, 5.25 us at
+// 3.35 TB/s).  At whole-body B4 lists 2.32x B1's rows (13,816 segments of
+// 32 rows), most of them out of band and skipped by the walk's masks.
 //
 // Plain C interface, loaded with ctypes by tron_tpu_torch/_build.py.
 
-#include "grid_radial2d.cuh"
+#include "grid_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;             // the ring of shared-memory stages
+constexpr float kCullSlack = 0.01f;    // pixels: the wedge test's slack on the projection
+constexpr float kCullSlack2 = 0.1f;    // squared pixels: on its squares (ops/cull.py:seg_hits)
+constexpr int kSegThreads = kThreads + 32;  // 8 consumer warps and the producer
+constexpr size_t kMaxDynamic = 200 * 1024;  // bytes of stages at most
 
-template <int KP, bool LATTICE>
-__global__ void __launch_bounds__(kThreads)
-grid_seg_radial2d_kernel(const float* __restrict__ planes,  // (npe, nR, K)
-                         const float* __restrict__ ct,      // (npe,)
-                         const float* __restrict__ st,      // (npe,)
-                         const float* __restrict__ rad,     // (nR,) or null
-                         float2* __restrict__ out,          // (K/2, nxos, nxos)
-                         int npe, int nR, int nxos, int K, float kw,
-                         float beta, float scale, float reach) {
-  __shared__ float s_c[kThreads];
-  __shared__ float s_s[kThreads];
-  __shared__ float s_ic[kThreads];
-  __shared__ float s_is[kThreads];
-  __shared__ int s_pe[kThreads];
-  __shared__ int s_warp[kWarps];
-
-  const int x = blockIdx.x * kBlockX + threadIdx.x;
-  const int y = blockIdx.y * kBlockY + threadIdx.y;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+// Pass 1, blocks [0, T): tile t's list of segments (spoke, first row),
+// spokes ascending, the negative-radius segment first, and its rows.
+// seg_start[2 t + s]: the first row of sign s's segment (0: positive
+// radii, 1: negative), -1 when the sign's band is empty.
+__device__ void seg_list(int t, const float* __restrict__ ct, const float* __restrict__ st,
+                         int npe, int nxos, int seg, float margin,
+                         const int* __restrict__ seg_start, const Work& w) {
+  __shared__ int s_cnt[kWarps];
+  const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool active = x < nxos && y < nxos;
-  const Pixel px = make_pixel(x, y, nR, nxos, kw, beta);
-
-  // the tile's pixel-centre extent (edge tiles are partial)
-  const int tx0 = blockIdx.x * kBlockX;
-  const int ty0 = blockIdx.y * kBlockY;
-  const int tx1 = min(tx0 + kBlockX, nxos) - 1;
-  const int ty1 = min(ty0 + kBlockY, nxos) - 1;
-  const float cx = 0.5f * static_cast<float>(tx0 + tx1) - static_cast<float>(px.h);
-  const float cy = 0.5f * static_cast<float>(ty0 + ty1) - static_cast<float>(px.h);
-  const float hx = 0.5f * static_cast<float>(tx1 - tx0);
-  const float hy = 0.5f * static_cast<float>(ty1 - ty0);
-  const float limit = sqrtf(hx * hx + hy * hy) + reach;
-
-  for (int k0 = 0; k0 < K; k0 += KP) {
-    float acc[KP];
-#pragma unroll
-    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
-    const int kn = min(KP, K - k0);
-
-    for (int p0 = 0; p0 < npe; p0 += kThreads) {
-      // Phase 1: cull this chunk against the tile, compact in index order
-      const int p = p0 + tid;
-      float c = 0.0f, s = 0.0f;
-      bool hit = false;
-      if (p < npe) {
-        c = ct[p];
-        s = st[p];
-        hit = fabsf(cx * s - cy * c) <= limit;
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-      __syncthreads();  // the previous chunk's list has been walked
-      if (lane == 0) s_warp[warp] = __popc(ballot);
-      __syncthreads();
-      int base = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int n = s_warp[w];
-        base += w < warp ? n : 0;
-        total += n;
-      }
-      if (hit) {
-        const int i = base + __popc(ballot & ((1u << lane) - 1u));
-        s_c[i] = c;
-        s_s[i] = s;
-        s_ic[i] = c != 0.0f ? 1.0f / c : 0.0f;
-        s_is[i] = s != 0.0f ? 1.0f / s : 0.0f;
-        s_pe[i] = p;
-      }
-      __syncthreads();
-      // Phase 2: the per-pixel row loop over the listed spokes
-      if (!active) continue;
-      for (int i = 0; i < total; ++i) {
-        grid_spoke<KP, LATTICE, 0>(planes, rad, s_pe[i], k0, kn, K, s_c[i],
-                                   s_s[i], s_ic[i], s_is[i], px, acc);
-      }
+  const int ntx = (nxos + kTile - 1) / kTile;
+  const int h = nxos / 2;
+  // the full tile's centre, as JAX's wedge takes it ((j + 0.5) tile - h)
+  const float cx = static_cast<float>((t % ntx) * kTile + kTile / 2 - h);
+  const float cy = static_cast<float>((t / ntx) * kTile + kTile / 2 - h);
+  const float d2m = cx * cx + cy * cy - margin * margin;  // <= 0: every spoke
+  const float lim = d2m - kCullSlack2;
+  const int s_pos = seg_start[2 * t];
+  const int s_neg = seg_start[2 * t + 1];
+  int2* ent = w.ent + static_cast<size_t>(t) * 2 * npe;
+  int nent = 0;
+  for (int p0 = 0; p0 < npe; p0 += kThreads) {
+    const int p = p0 + tid;
+    bool pos = false, neg = false;
+    if (p < npe) {
+      const float proj = ct[p] * cx + st[p] * cy;  // the spoke's direction . centre
+      const float a = proj + kCullSlack;
+      const float b = kCullSlack - proj;
+      pos = s_pos >= 0 && (d2m <= 0.0f || (a >= 0.0f && a * a >= lim));
+      neg = s_neg >= 0 && (d2m <= 0.0f || (b >= 0.0f && b * b >= lim));
     }
-    if (active) store<KP>(out, acc, k0, kn, nxos, x, y, scale);
+    const int n = static_cast<int>(pos) + static_cast<int>(neg);
+    int incl = n;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) s_cnt[warp] = incl;
+    __syncthreads();
+    int base = 0, tot = 0;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      base += v < warp ? s_cnt[v] : 0;
+      tot += s_cnt[v];
+    }
+    int i = nent + base + incl - n;
+    if (neg) ent[i++] = make_int2(p, s_neg);
+    if (pos) ent[i] = make_int2(p, s_pos);
+    nent += tot;
+    __syncthreads();  // s_cnt is reused
+  }
+  if (tid == 0) {
+    w.tile_nent[t] = nent;
+    w.tile_rows[t] = nent * seg;
   }
 }
 
-template <int KP>
-void launch_seg(const float* planes, const float* ct, const float* st,
-                const float* rad, float2* out, int npe, int nR, int nxos, int K,
-                float kw, float beta, float scale, float reach,
-                cudaStream_t stream) {
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((nxos + kBlockX - 1) / kBlockX,
-                  (nxos + kBlockY - 1) / kBlockY);
-  if (rad == nullptr) {
-    grid_seg_radial2d_kernel<KP, false><<<grid, block, 0, stream>>>(
-        planes, ct, st, rad, out, npe, nR, nxos, K, kw, beta, scale, reach);
+template <bool LATTICE>
+__global__ void __launch_bounds__(kThreads)
+grid_seg_list_kernel(const float* __restrict__ ct, const float* __restrict__ st,
+                     const float* __restrict__ rad, int npe, int nR, int nxos, float kw,
+                     float beta, int W, int seg, float margin,
+                     const int* __restrict__ seg_start, int ntiles, Work w) {
+  if (static_cast<int>(blockIdx.x) < ntiles) {
+    seg_list(blockIdx.x, ct, st, npe, nxos, seg, margin, seg_start, w);
   } else {
-    grid_seg_radial2d_kernel<KP, true><<<grid, block, 0, stream>>>(
-        planes, ct, st, rad, out, npe, nR, nxos, K, kw, beta, scale, reach);
+    weight_rows<LATTICE>(blockIdx.x - ntiles, gridDim.x - ntiles, ct, st, rad, npe, nR, nxos,
+                         kw, beta, W, w);
   }
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The named barrier of the 8 consumer warps (the producer is not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// A stage: G segments of seg rows each; samples (all K channels), weight
+// headers and weight runs, each part 16-byte aligned.
+struct Stage {
+  size_t samp, hdr, wt, bytes;
+};
+
+__host__ __device__ inline Stage stage_layout(int rows, int K, int ws) {
+  Stage s;
+  s.samp = 0;
+  s.hdr = (static_cast<size_t>(rows) * K * sizeof(float) + 127) / 128 * 128;
+  s.wt = s.hdr + static_cast<size_t>(rows) * sizeof(int4);
+  s.bytes = (s.wt + static_cast<size_t>(rows) * ws * sizeof(float) + 127) / 128 * 128;
+  return s;
+}
+
+// Pass 3 of B4: warps 0-7 consume, warp 8 produces.  G segments per stage.
+template <int KP>
+__global__ void __launch_bounds__(kSegThreads)
+grid_seg_contract_kernel(const float* __restrict__ planes,  // (npe, nR, K)
+                         float2* __restrict__ out,          // (K/2, nxos, nxos)
+                         int npe, int nR, int nxos, int K, int W, float scale, int seg,
+                         int G, bool bulk, int ntiles, Work w) {
+  extern __shared__ __align__(128) unsigned char s_stage[];
+  __shared__ float s_wx[kChunkRows][kTile];
+  __shared__ float s_wy[kChunkRows][kTile];
+  __shared__ unsigned s_mask[kChunkRows];
+  __shared__ uint64_t s_full[kStages];
+  __shared__ uint64_t s_empty[kStages];
+  __shared__ int s_info[6];
+
+  const int item = blockIdx.x;
+  if (item >= w.head[1]) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (warp == 0) locate_item<false>(item, ntiles, npe, w, s_info);
+  if (tid == 0) {
+    for (int b = 0; b < kStages; ++b) {
+      mbar_init(&s_full[b], bulk ? 1 : 33);  // the producer's arrive (+ its lanes' cp.async)
+      mbar_init(&s_empty[b], 1);             // the consumers' release
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int t = s_info[0];
+  const int sbeg = s_info[1] / seg;  // the item's segments [sbeg, send)
+  const int send = s_info[2] / seg;
+  const int slot = s_info[4];
+  const int nst = (send - sbeg + G - 1) / G;
+  const int2* __restrict__ ent = w.ent + static_cast<size_t>(t) * 2 * npe;
+  const int ws = table_stride(W);
+  const Stage lay = stage_layout(G * seg, K, ws);
+
+  if (warp == kWarps) {  // the producer
+    for (int i = 0; i < nst; ++i) {
+      const int b = i % kStages;
+      if (i >= kStages) mbar_wait(&s_empty[b], ((i / kStages) - 1) & 1);
+      unsigned char* stage = s_stage + b * lay.bytes;
+      const int e0 = sbeg + i * G;
+      const int ne = min(G, send - e0);
+      const unsigned rows = static_cast<unsigned>(ne * seg);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&s_full[b], rows * (static_cast<unsigned>(sizeof(int4)) +
+                                                  ws * static_cast<unsigned>(sizeof(float)) +
+                                                  (bulk ? K * static_cast<unsigned>(sizeof(float)) : 0u)));
+      }
+      __syncwarp();
+      for (int j = lane; j < ne; j += 32) {  // more than 32 segments when seg < 4
+        const int2 e = ent[e0 + j];
+        const size_t pr = static_cast<size_t>(e.x) * nR + e.y;  // the segment's first plane row
+        const int r = j * seg;
+        bulk_copy(stage + lay.hdr + r * sizeof(int4), w.whdr + pr, seg * sizeof(int4), &s_full[b]);
+        bulk_copy(stage + lay.wt + static_cast<size_t>(r) * ws * sizeof(float),
+                  w.wtab + pr * ws, seg * ws * sizeof(float), &s_full[b]);
+        if (bulk) {
+          bulk_copy(stage + lay.samp + static_cast<size_t>(r) * K * sizeof(float),
+                    planes + pr * K, seg * K * sizeof(float), &s_full[b]);
+        }
+      }
+      if (!bulk) {  // 8-byte copies, channel pairs of every row of the stage
+        float* dst = reinterpret_cast<float*>(stage + lay.samp);
+        const int pairs = K / 2;
+        for (int x = lane; x < static_cast<int>(rows) * pairs; x += 32) {
+          const int j = x / pairs;
+          const int k = 2 * (x - j * pairs);
+          const int2 e = ent[e0 + j / seg];
+          const size_t pr = static_cast<size_t>(e.x) * nR + e.y + j % seg;
+          cp_async(dst + static_cast<size_t>(j) * K + k, planes + pr * K + k, false);
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                         smem_addr(&s_full[b]))
+                     : "memory");
+      }
+    }
+    return;
+  }
+
+  const int k0 = blockIdx.y * kMaxChannels;
+  const int kn = min(KP, K - k0);
+  const TileSpan ts = tile_span(t, nxos);
+  const int h = nxos / 2;
+  const int tx = tid % kTile;
+  const int ty = tid / kTile;  // warp v holds tile rows 2v and 2v + 1
+  const int wcoord = (lane < kTile ? ts.tx0 + lane : ts.ty0 + lane - kTile) - h;
+  float acc[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+
+  for (int i = 0; i < nst; ++i) {
+    const int b = i % kStages;
+    const int e0 = sbeg + i * G;
+    const int n = min(G, send - e0) * seg;
+    const unsigned char* stage = s_stage + b * lay.bytes;
+    const int4* hdr = reinterpret_cast<const int4*>(stage + lay.hdr);
+    const float* wt = reinterpret_cast<const float*>(stage + lay.wt);
+    mbar_wait(&s_full[b], (i / kStages) & 1);
+    if (tid < n) {  // row j of the stage: segment j / seg, row j % seg of it
+      const int2 e = ent[e0 + tid / seg];
+      s_mask[tid] = e.y + tid % seg == 0 ? 0u : row_mask(hdr[tid], ts, h);
+    }
+    expand_weights<kTile, false>(hdr, wt, ws, W, n, n, wcoord, &s_wx[0][0], &s_wy[0][0]);
+    consumers_sync();
+    fma_rows<KP, kTile>(n, s_mask, &s_wx[0][0], &s_wy[0][0],
+                        reinterpret_cast<const float*>(stage + lay.samp) + k0, K, kn, tx, ty,
+                        acc);
+    consumers_sync();  // the stage and s_wx, s_wy, s_mask are free
+    if (tid == 0) mbar_arrive(&s_empty[b]);
+  }
+  store_item<KP>(out, acc, w, slot, K, k0, kn, nxos, ts, tx, ty, scale);
 }
 
 }  // namespace
 
 extern "C" {
 
-// As tron_grid_radial2d_planes, with reach = sqrt(2)*kw + slack, the
-// distance beyond a tile's half-diagonal at which a spoke's line can still
-// reach it (ops/cull.py:reach).
-int tron_grid_seg_radial2d_planes(const void* planes, const void* ct,
-                                  const void* st, const void* rad, void* out,
-                                  int npe, int nR, int nxos, int K, float kw,
-                                  float beta, float scale, float reach,
-                                  void* stream) {
-  if (bad_args(npe, nR, nxos, K, rad)) {
+// Bytes of the workspace tron_grid_seg_radial2d_planes needs for these
+// shapes and `slots` partial slots.
+size_t tron_grid_seg_radial2d_workspace_bytes(int npe, int nR, int nxos, int K, float kw,
+                                              int slots) {
+  return work_bytes(npe, nR, nxos, K, window_of(kw), 2 * npe, false, slots, nullptr, nullptr);
+}
+
+// As tron_grid_radial2d_planes, with the static segments: seg_start (2T,)
+// int32 on the device, T = ceil(nxos/16)^2, the first plane row of each
+// (tile, sign)'s segment (sign 0 positive radii, 1 negative; -1: empty),
+// seg the segment length (1 to 128 rows; every staged part stays 16-byte
+// aligned, as table_stride and the bulk path's K % 4 == 0 keep each
+// row's bytes a multiple of 16), margin the wedge
+// test's reach beyond the tile centre (ops/cull.py:seg_hits), slots the
+// partial slots the workspace holds (tron_grid_seg_radial2d_workspace_bytes).
+int tron_grid_seg_radial2d_planes(const void* planes, const void* ct, const void* st,
+                                  const void* rad, void* out, int npe, int nR, int nxos,
+                                  int K, float kw, float beta, float scale,
+                                  const void* seg_start, int seg, float margin, int slots,
+                                  void* work, size_t work_size, void* stream) {
+  Work w;
+  const int W = window_of(kw);
+  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) || seg < 1 ||
+      seg > kChunkRows || seg > nR || slots < 1 || slots > kMaxSlots ||
+      work_bytes(npe, nR, nxos, K, W, 2 * npe, false, slots, &w, static_cast<char*>(work)) >
+          work_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int ws = table_stride(W);
+  int G = kChunkRows / seg;  // segments per stage
+  while (G > 1 && kStages * stage_layout(G * seg, K, ws).bytes > kMaxDynamic) --G;
+  const size_t dyn = kStages * stage_layout(G * seg, K, ws).bytes;
+  if (dyn > kMaxDynamic) return static_cast<int>(cudaErrorInvalidValue);
+  const bool bulk = (K & 3) == 0 && reinterpret_cast<uintptr_t>(planes) % 16 == 0;
+  const float* p = static_cast<const float*>(planes);
+  const float* c = static_cast<const float*>(ct);
+  const float* s = static_cast<const float*>(st);
+  const float* r = static_cast<const float*>(rad);
+  const int* ss = static_cast<const int*>(seg_start);
+  float2* o = static_cast<float2*>(out);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  const int T = tiles_of(nxos);
+  const int blocks = T + weight_blocks(npe, nR, W);
+  if (r == nullptr) {
+    grid_seg_list_kernel<false><<<blocks, kThreads, 0, strm>>>(c, s, r, npe, nR, nxos, kw, beta,
+                                                                W, seg, margin, ss, T, w);
+  } else {
+    grid_seg_list_kernel<true><<<blocks, kThreads, 0, strm>>>(c, s, r, npe, nR, nxos, kw, beta,
+                                                               W, seg, margin, ss, T, w);
+  }
+  grid_tile_items_kernel<<<1, kScanThreads, 0, strm>>>(T, slots, seg, w);
+  int code = 0;
   with_channel_block(K, [&](auto kp) {
-    launch_seg<decltype(kp)::value>(
-        static_cast<const float*>(planes), static_cast<const float*>(ct),
-        static_cast<const float*>(st), static_cast<const float*>(rad),
-        static_cast<float2*>(out), npe, nR, nxos, K, kw, beta, scale, reach,
-        static_cast<cudaStream_t>(stream));
+    constexpr int KP = decltype(kp)::value;
+    const cudaError_t e = cudaFuncSetAttribute(
+        grid_seg_contract_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(dyn));
+    if (e != cudaSuccess) {
+      code = static_cast<int>(e);
+      return;
+    }
+    const dim3 grid(max_items(T, slots), (K + kMaxChannels - 1) / kMaxChannels);
+    grid_seg_contract_kernel<KP><<<grid, kSegThreads, dyn, strm>>>(
+        p, o, npe, nR, nxos, K, W, scale, seg, G, bulk, T, w);
   });
+  if (code != 0) return code;
+  launch_reduce(o, nxos, K, scale, slots, w, strm);
   return static_cast<int>(cudaGetLastError());
 }
 

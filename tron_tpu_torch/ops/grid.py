@@ -50,28 +50,23 @@ def _grid_dense(
     kernwidth: float,
     beta: float,
     pe_chunk: int,
-    window: tuple[slice, slice] | None = None,
-    npe_scale: int | None = None,
 ) -> torch.Tensor:
     """Real sample planes s (npe, nR, K) at radii rr (nR,) -> (K, nxos, nxos)
-    f32 grids, scaled by 1/(nxos*npe).  ``window`` = (rows, columns) slices
-    restricts the output to that block of the grid; ``npe_scale`` replaces
-    npe in the scale (a tile's hit spokes carry the frame's scale)."""
+    f32 grids, scaled by 1/(nxos*npe)."""
     npe, nR, K = s.shape
     coord = (torch.arange(nxos, device=s.device) - nxos // 2).to(torch.float32)
-    Y, X = (coord, coord) if window is None else (coord[window[0]], coord[window[1]])
     ct = torch.cos(angles.to(torch.float32))
     st = torch.sin(angles.to(torch.float32))
-    acc = s.new_zeros((K, Y.shape[0], X.shape[0]))
+    acc = s.new_zeros((K, nxos, nxos))
     for p0 in range(0, npe, pe_chunk):
         sl = slice(p0, min(p0 + pe_chunk, npe))
         kx = rr[None, :, None] * ct[sl, None, None]            # (P, nR, 1)
         ky = rr[None, :, None] * st[sl, None, None]
-        A = kb_kernel(kx - X, kernwidth, beta)                  # (P, nR, nx)
-        B = kb_kernel(ky - Y, kernwidth, beta)                  # (P, nR, ny)
+        A = kb_kernel(kx - coord, kernwidth, beta)              # (P, nR, nx)
+        B = kb_kernel(ky - coord, kernwidth, beta)              # (P, nR, ny)
         U = s[sl].permute(2, 0, 1)[..., None] * B               # (K, P, nR, ny)
-        acc += U.reshape(K, -1, Y.shape[0]).transpose(1, 2) @ A.reshape(-1, X.shape[0])
-    return acc * (1.0 / (nxos * (npe if npe_scale is None else npe_scale)))
+        acc += U.reshape(K, -1, nxos).transpose(1, 2) @ A.reshape(-1, nxos)
+    return acc * (1.0 / (nxos * npe))
 
 
 def grid_radial2d(
@@ -142,28 +137,40 @@ def grid_radial2d_planes_culled(
     beta: float,
     rad: torch.Tensor | None = None,
     tile: int = cull.TILE,
-    pe_chunk: int = 64,
+    seg_chunk: int = 512,
 ) -> torch.Tensor:
-    """The planes gridder applied tile by tile to each tile's hit spokes
-    (`ops/cull.py`): the plain version of the tile-culled CUDA kernel
-    (`csrc/grid_seg_radial2d.cu`, the port of B4 `_seg_kernel`).  Same
-    contract as ``grid_radial2d_planes_plain``; ``rad`` None grids integer
-    radii (nR == nxos), else row u sits at radius rad[u] (the exact
-    lattice).  Row 0 is never gridded."""
+    """The plain version of B4 (`csrc/grid_seg_radial2d.cu`, the port of
+    `_seg_kernel`) in its decomposition: each tile sums the rows of its
+    listed segments, the static per-(tile, sign) segments of
+    ``cull.tile_segments`` for the spokes that ``cull.seg_hits`` keeps,
+    with the planes gridder's separable KB weights.  Same contract as
+    ``grid_radial2d_planes_plain``; ``rad`` None grids integer radii (nR ==
+    nxos), else row u sits at radius rad[u] (the exact lattice).  Row 0 is
+    never gridded."""
     npe, nR, K = planes.shape
+    dev = planes.device
+    exact = rad is not None
     if rad is None:
-        rad = (torch.arange(nR, device=planes.device) - nxos // 2).to(torch.float32)
-    counts, lists = cull.hit_lists(cull.tile_hits(angles, nxos, kernwidth, tile))
-    counts = counts.tolist()  # one host read for all tiles
-    g = planes.new_zeros((K, nxos, nxos))
-    for i, y0 in enumerate(range(0, nxos, tile)):
-        for j, x0 in enumerate(range(0, nxos, tile)):
-            if counts[i][j] == 0:
-                continue
-            hit = lists[i, j, : counts[i][j]]
-            win = (slice(y0, y0 + tile), slice(x0, x0 + tile))
-            g[:, win[0], win[1]] = _grid_dense(
-                planes[hit, 1:], rad[1:], angles[hit], nxos, kernwidth, beta, pe_chunk,
-                window=win, npe_scale=npe,
-            )
-    return _complex_grids(g)
+        rad = (torch.arange(nR, device=dev) - nxos // 2).to(torch.float32)
+    starts, nonempty, seg = cull.tile_segments(nxos, kernwidth, nR if exact else None, tile)
+    ti, tj, sign, spoke = torch.nonzero(
+        cull.seg_hits(angles, nxos, kernwidth, nonempty, tile), as_tuple=True)
+    rows = torch.as_tensor(starts, device=dev).long()[ti, tj, sign][:, None] + torch.arange(
+        seg, device=dev)                                                # (S, seg)
+    n = -(-nxos // tile)
+    px = torch.arange(tile, device=dev) - nxos // 2
+    ct = torch.cos(angles.to(torch.float32))
+    st = torch.sin(angles.to(torch.float32))
+    acc = planes.new_zeros((n * n, K, tile, tile))
+    for s0 in range(0, rows.shape[0], seg_chunk):
+        sl = slice(s0, s0 + seg_chunk)
+        r = rad[rows[sl]][..., None]                                    # (s, seg, 1)
+        X = (tj[sl, None] * tile + px).to(torch.float32)[:, None]       # (s, 1, tile)
+        Y = (ti[sl, None] * tile + px).to(torch.float32)[:, None]
+        wx = kb_kernel(r * ct[spoke[sl], None, None] - X, kernwidth, beta)
+        wx = torch.where((rows[sl] == 0)[..., None], 0.0, wx)
+        wy = kb_kernel(r * st[spoke[sl], None, None] - Y, kernwidth, beta)
+        s = planes[spoke[sl, None], rows[sl]]                           # (s, seg, K)
+        acc.index_add_(0, ti[sl] * n + tj[sl], torch.einsum("srx,sry,srk->skyx", wx, wy, s))
+    g = acc.reshape(n, n, K, tile, tile).permute(2, 0, 3, 1, 4).reshape(K, n * tile, n * tile)
+    return _complex_grids(g[:, :nxos, :nxos] * (1.0 / (nxos * npe)))

@@ -8,20 +8,23 @@ contract of `csrc/grid_radial2d.cuh`:
   `_win_kernel` (in its integer-radius and its exact-lattice modes) and
   `_grid_kernel`; the default (``windowed=True``).  Its workspace (tile
   lists, item table, partial sums) is allocated here with ``torch.empty``;
-- ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): the
-  per-pixel gather with a static unroll over row slots, which replaces
-  `_win_kernel_batched`, taken when ``tuning.batched`` is set
-  (``KernelTuning(batched=True)``, ``TRON_BATCHED=1``);
-- ``grid_seg_radial2d`` (`csrc/grid_seg_radial2d.cu`): the tile-culled
-  per-pixel gather, which replaces `_seg_kernel`, taken with
-  ``windowed=False``; bitwise equal to the batched kernel (the same
-  per-pixel code), and equal to the default kernel up to the grouping of
-  its fp32 sums.
+- ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): the same
+  passes and workspace with the contraction a static unroll on tensor
+  cores (3xTF32 ``mma.sync``), which replaces `_win_kernel_batched`, taken
+  when ``tuning.batched`` is set (``KernelTuning(batched=True)``,
+  ``TRON_BATCHED=1``);
+- ``grid_seg_radial2d`` (`csrc/grid_seg_radial2d.cu`): the contraction
+  over static per-(tile, sign) radius segments and wedge-culled spoke
+  lists (`ops/cull.py`), staged by bulk async copies, which replaces
+  `_seg_kernel`, taken with ``windowed=False``.
+
+All three sum the same nonzero fp32 terms; B4 in B1's order, regrouped at
+item boundaries, B5 as split TF32 products.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the kernels'
 plain version (`ops/grid.py`: the planes gridder, or for ``windowed=False``
-the same gridder applied to each tile's culled spokes), and only because it
-lies on the CPU.  A kernel failure is never caught to fall back.
+the sum over each tile's listed segments), and only because it lies on the
+CPU.  A kernel failure is never caught to fall back.
 
 ``LAUNCH_COUNTS`` counts launches per kernel (one per wrapper call that
 reached the card), so a run can show which kernel its main path went
@@ -32,7 +35,6 @@ them.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
 
@@ -51,16 +53,13 @@ KERNELS = ("grid_radial2d", "grid_radial2d_batched", "grid_seg_radial2d")
 LAUNCH_COUNTS = dict.fromkeys(KERNELS, 0)
 
 # Precision classes of the JAX gridder.  They exist for the TPU's bf16 MXU;
-# the CUDA kernels run fp32 FMA for every one of them.
+# the CUDA kernels compute every one of them to float32 grade (B5 as
+# 3xTF32 products).
 MATMUL_DTYPES = ("bfloat16", "bf16x2", "bf16x3", "float32")
 
-# The tile kernel's weight windows, floor(2*kernwidth) + 3 pixels per axis,
-# take at most 16 lanes each (csrc/grid_radial2d.cu).
+# The tile kernels' weight windows, floor(2*kernwidth) + 3 pixels per axis,
+# take at most 16 lanes each (csrc/grid_tiles.cuh).
 MAX_KERNWIDTH = 7.0
-
-# Row-slot counts the static-unroll kernel is built for
-# (csrc/grid_radial2d_batched.cu).
-NSLOTS = (10, 12, 16)
 
 
 def __getattr__(name):
@@ -72,29 +71,6 @@ def __getattr__(name):
 def reset_launches() -> None:
     for k in LAUNCH_COUNTS:
         LAUNCH_COUNTS[k] = 0
-
-
-def row_bound(kernwidth: float, rows_per_unit: float = 1.0) -> int:
-    """The most rows the gridding kernels walk for one (pixel, spoke): the
-    band where |r cos t - X| < kw and |r sin t - Y| < kw is shorter than
-    2*sqrt(2)*kw in radius (rows_per_unit = nR/nxos rows per unit radius
-    on the exact lattice), plus 2 for the floor/ceil of its ends and 2 for
-    the one-row widening on each side, plus 1 to count both ends.  The 1e-2
-    covers fp32 rounding of the band's ends."""
-    return math.floor(2.0 * math.sqrt(2.0) * kernwidth * rows_per_unit + 1e-2) + 5
-
-
-def pick_nslot(kernwidth: float, rows_per_unit: float = 1.0) -> int:
-    """The smallest built row-slot count that covers ``row_bound``; raises
-    when none does, so no row is ever dropped."""
-    need = row_bound(kernwidth, rows_per_unit)
-    for n in NSLOTS:
-        if n >= need:
-            return n
-    raise ValueError(
-        f"the batched gridding kernel needs {need} row slots at kernwidth {kernwidth} "
-        f"and {rows_per_unit:g} rows per unit radius; it is built for at most {NSLOTS[-1]}"
-    )
 
 
 def _planes(ds: torch.Tensor) -> torch.Tensor:
@@ -167,8 +143,9 @@ def grid_radial2d_planes(
     """Adjoint gridding from sample planes (npe, nxos, 2C) f32 (see
     to_sample_planes).  Returns (C, nxos, nxos) complex64 scaled by
     1/(nxos*npe).  ``matmul_dtype`` names the JAX precision class; the
-    kernels compute in fp32 for every class.  ``windowed=False`` takes the
-    tile-culled kernel; ``tuning.batched`` the static-unroll one."""
+    kernels compute to fp32 grade for every class.  ``windowed=False``
+    takes the segmented kernel (B4); ``tuning.batched`` the tensor-core
+    one (B5)."""
     _check_dtype(matmul_dtype)
     if planes.device.type == "cpu":
         if not windowed:
@@ -181,48 +158,65 @@ def grid_radial2d_planes(
 
 
 @functools.cache
-def _workspace_bytes(lib, npe: int, nR: int, nxos: int, K: int, kernwidth: float) -> int:
-    """Bytes of the tile kernel's workspace for these shapes (the C side
-    lays it out)."""
-    return int(lib.tron_grid_radial2d_workspace_bytes(npe, nR, nxos, K, kernwidth))
+def _workspace_bytes(lib, entry: str, *shapes) -> int:
+    """Bytes of a tile kernel's workspace for these shapes, from its C entry
+    ``entry`` (the C side lays it out)."""
+    return int(getattr(lib, entry)(*shapes))
+
+
+@functools.cache
+def _segments(nxos: int, kernwidth: float, nR: int | None, device) -> tuple[torch.Tensor, int]:
+    """B4's static segment starts as the kernel reads them, (2T,) int32 on
+    ``device`` (sign 0 positive radii, 1 negative; -1 for an empty band),
+    and the segment length; built once per geometry."""
+    starts, nonempty, seg = cull.tile_segments(nxos, kernwidth, nR)
+    flat = torch.from_numpy(starts.astype("int64"))
+    flat[~torch.from_numpy(nonempty)] = -1
+    return flat.reshape(-1).to(torch.int32).to(device), seg
 
 
 def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> torch.Tensor:
     """rad None: integer radii (nR == nxos); else the (nR,) row radii."""
+    if kernwidth >= MAX_KERNWIDTH:
+        raise ValueError(f"the gridding kernels take kernwidth < {MAX_KERNWIDTH}, got {kernwidth}")
     built = _build.load()
+    lib = built.lib
     npe, nR, K = planes.shape
+    kw = float(kernwidth)
     ct = torch.cos(angles)
     st = torch.sin(angles)
     out = torch.empty((K // 2, nxos, nxos), dtype=torch.complex64, device=planes.device)
     args = (
         planes.data_ptr(), ct.data_ptr(), st.data_ptr(),
         None if rad is None else rad.data_ptr(), out.data_ptr(),
-        npe, nR, nxos, K, float(kernwidth), float(beta), 1.0 / (nxos * npe),
+        npe, nR, nxos, K, kw, float(beta), 1.0 / (nxos * npe),
     )
     if not windowed:
-        name, fn, extra = "grid_seg_radial2d", built.lib.tron_grid_seg_radial2d_planes, (
-            cull.reach(kernwidth),
-        )
-    elif tuning is not None and tuning.batched:
-        nslot = pick_nslot(kernwidth, 1.0 if rad is None else nR / nxos)
-        name, fn, extra = "grid_radial2d_batched", built.lib.tron_grid_radial2d_batched_planes, (
-            nslot,
-        )
-    else:
-        if kernwidth >= MAX_KERNWIDTH:
+        lattice = None if rad is None else nR
+        starts, seg = _segments(nxos, kw, lattice, planes.device)
+        if seg > 128:
             raise ValueError(
-                f"the gridding kernel takes kernwidth < {MAX_KERNWIDTH}, got {kernwidth}"
+                f"the segmented gridding kernel takes segments of at most 128 rows; this "
+                f"geometry (nxos {nxos}, {nR} rows, kernwidth {kw}) has {seg}"
             )
-        work = torch.empty(
-            _workspace_bytes(built.lib, npe, nR, nxos, K, float(kernwidth)),
-            dtype=torch.uint8, device=planes.device,
-        )
-        name, fn, extra = "grid_radial2d", built.lib.tron_grid_radial2d_planes, (
-            work.data_ptr(), work.numel(),
-        )
+        slots = cull.seg_slots(npe, nxos, kw, lattice)
+        nbytes = _workspace_bytes(lib, "tron_grid_seg_radial2d_workspace_bytes", npe, nR,
+                                  nxos, K, kw, slots)
+        name, fn = "grid_seg_radial2d", lib.tron_grid_seg_radial2d_planes
+        extra = (starts.data_ptr(), seg, cull.wedge_margin(kw), slots)
+    else:
+        nbytes = _workspace_bytes(lib, "tron_grid_radial2d_workspace_bytes", npe, nR, nxos, K,
+                                  kw)
+        extra = ()
+        if tuning is not None and tuning.batched:
+            name, fn = "grid_radial2d_batched", lib.tron_grid_radial2d_batched_planes
+        else:
+            name, fn = "grid_radial2d", lib.tron_grid_radial2d_planes
+    work = torch.empty(int(nbytes), dtype=torch.uint8, device=planes.device)
     with torch.cuda.device(planes.device):
-        code = fn(*args, *extra, torch.cuda.current_stream(planes.device).cuda_stream)
-    _build.check(built.lib, code, f"{name} kernel")
+        code = fn(*args, *extra, work.data_ptr(), work.numel(),
+                  torch.cuda.current_stream(planes.device).cuda_stream)
+    _build.check(lib, code, f"{name} kernel")
     LAUNCH_COUNTS[name] += 1
     return out
 

@@ -10,8 +10,8 @@ the recon runs them:
         [--npe 204] [--op grid|degrid] [--no-windowed] [--batched]
         [--reps 5] [--dtype bfloat16] [--check]
 
-``--no-windowed`` takes the tile-culled gridding kernel, ``--batched`` the
-static-unroll one (``KernelTuning(batched=True)``, as ``TRON_BATCHED=1``).
+``--no-windowed`` takes the segmented gridding kernel (B4), ``--batched`` the
+tensor-core one (B5: ``KernelTuning(batched=True)``, as ``TRON_BATCHED=1``).
 Times are CUDA-event times after a warm-up; the kernel that ran is read
 from the wrappers' launch counts.  ``--check`` prints frame 0's NRMSE
 against the plain torch version.  Needs a CUDA device.
@@ -49,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--check", action="store_true", help="NRMSE vs the plain torch version")
     p.add_argument("--op", default="grid", choices=["grid", "degrid"])
     p.add_argument("--batched", action="store_true",
-                   help="KernelTuning(batched=True): the static-unroll gridding kernel "
+                   help="KernelTuning(batched=True): the tensor-core gridding kernel "
                    "(as TRON_BATCHED=1)")
     return p
 
