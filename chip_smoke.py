@@ -18,9 +18,10 @@ Phases, one line each (any failure raises and exits non-zero):
   7 timing   throughput (CUDA events), kernel vs plain ms per frame and the
              tile kernel's four passes in the profiler
   8 degrid   the CUDA degridding kernel vs its plain torch version (wrap and
-             clip; nxos 64-640, 1-10 coils, gridos 1.5/2/2.5, an odd nro)
+             clip; nxos 64-640, 1-10 coils, gridos 1.5/2/2.5, an odd nro; kw 4
+             and 6.5, the wide instantiation)
   9 exact    the gridding kernel's exact lattice vs the plain raw-rows gridder
- 10 dot      dot test of the kernel pair at gridos 1.5, 2, 2.5
+ 10 dot      dot test of the kernel pair at gridos 1.5, 2, 2.5, and at kw 4, 6.5
  11 forward  forward recon_radial2d at full width (32 frames of 6-coil 256^2,
              -G -u 1: 512 spokes of 512 readouts), with launch counts
  12 cgnr     -a -G -u 0.4 -d 21 -i 10 on the whole-body series, with launch
@@ -47,6 +48,20 @@ Phases, one line each (any failure raises and exits non-zero):
  19 kbench   python -m tron_tpu_torch.tools.kbench: default, --no-windowed,
              --batched and --op degrid, each with --check, at whole-body;
              each one's device time per frame by kernel in the profiler
+ 20 koosh    -3 stack of stars at whole-body width (6 coils, nro 512, 816 spokes,
+             -u 0.4: 4 in-plane frames of 204; 32 kz encodings; 642 MB) through
+             recon_radial2d: adjoint (128 images) and forward (32 slices of
+             6x256^2, -G -u 1), with launch counts; slices vs the plain operators
+             on a host-side kz transform; nt 2 at a smaller depth; device ms
+ 21 kstream  tron-torch -3 -a -G -u 0.4 --stream on the same stack from a .ra,
+             also with --half and TRON_BATCHED=1, each vs the in-memory -3
+ 22 walsh    --combine walsh on 64 whole-body frames; Walsh vs a float64 dense
+             eigen-solve on 2 frames of the 6-coil phantom; --compress 3 in
+             memory vs --stream --compress 3; Walsh ms per frame
+ 23 cli3     tron-torch -B/-T, --scheme linear_half roundtrip of
+             tools.make_phantom, -k 4 forward and -i 2, --backend pallas,
+             --precision accurate, --profile DIR, -k 7 (exit 2), and the
+             golden-angle fixture of tools.make_goldenangle at nxos 128
 Then the kernel table as one JSON line (each kernel's launches on its main
 path, error, ms, the passes' device ms, plain ms, bound and library call), the
 nvidia-smi line, and
@@ -139,9 +154,9 @@ def main() -> int:
     # per kernel (source file and kernel, the shared passes once per
     # source): the register range over its instantiations, the whole-body
     # channel block (12) and the instantiations that spill, from ptxas's -v
-    # lines; an instantiation is named by its channel block KP (/V, the
-    # degrid kernel's floats per lane) and I/L (integer radii or the exact
-    # lattice)
+    # lines; an instantiation is named by its channel block KP (/V/MAXOFF, the
+    # degrid kernel's floats per lane and the neighbours per axis it holds: 8
+    # for kw < 4, 14 beyond) and I/L (integer radii or the exact lattice)
     fam, name = {}, None
     kernel_re = re.compile(
         r"_(grid_radial2d|grid_radial2d_batched|grid_seg_radial2d|degrid_radial2d)_cu_\w*?"
@@ -154,7 +169,8 @@ def main() -> int:
             ints = [v for t, v in args if t == "i"]
             flags = [v for t, v in args if t == "b"]
             key = f"{m.group(1)}.cu:{m.group(2)}"
-            inst = (ints[0] if ints else "") + (f"/{ints[1]}" if key.startswith("degrid") else "")
+            inst = (ints[0] if ints else "") + (
+                "/" + "/".join(ints[1:]) if key.startswith("degrid") else "")
             inst += "".join("L" if f == "1" else "I" for f in flags) or ("" if inst else "-")
             name = (key, inst)
         elif name and "spill stores" in ln:
@@ -220,7 +236,7 @@ def main() -> int:
         ("nxos512 C6 delta42 signed", 512, 6, 42, 19950, True),
         ("nxos128 C10 npe1500 (2 channel blocks, 2 spoke chunks)", 128, 10, 1500, 0, False),
     ]
-    err512 = None
+    err512 = err128 = None
     for name, nxos, C, npe, skip, signed in cases:
         planes, ang = planes_case(nxos, C, npe, skip, signed)
         got = grid_cuda.grid_radial2d_planes(planes, ang, nxos, kw, beta)
@@ -230,6 +246,8 @@ def main() -> int:
         mae = float((got - want).abs().max())
         log("kernel", f"{name}: nrmse {e:.3e} max_abs_err {mae:.3e} (tol {KERNEL_TOL})")
         require(e <= KERNEL_TOL, f"kernel vs plain {name}: nrmse {e:.3e} > {KERNEL_TOL}")
+        if name.startswith("nxos128 C2"):
+            err128 = mae
         if name.startswith("nxos512 C6 npe204"):
             err512 = mae
             again = grid_cuda.grid_radial2d_planes(planes, ang, nxos, kw, beta)
@@ -351,6 +369,9 @@ def main() -> int:
         f"on {card}")
 
     grid_pass = re.compile(r"grid_(?:tile|seg)_\w+?_kernel")
+    # under a profiler each wrapper names its launches in a range, which the
+    # trace mirrors on the device's timeline: not a kernel, not busy time
+    wrapper_ranges = {*grid_cuda.KERNELS, "degrid_radial2d"}
 
     def device_passes(fn, n=20, rx=grid_pass):
         """Device us per call of each kernel that ``fn`` launches whose name
@@ -363,7 +384,8 @@ def main() -> int:
             torch.cuda.synchronize()
         return {rx.search(e.key).group(0): e.self_device_time_total / n
                 for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)}
+                if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)
+                and e.key not in wrapper_ranges}
 
     # the tile kernel's four passes (band and weight table, items, contract,
     # reduce), device time per frame from the profiler
@@ -414,6 +436,39 @@ def main() -> int:
             if name == "nxos512 C6 npe204" and not wrap:
                 derr512 = mae
 
+    # kernel widths beyond the narrow instantiation's 8 neighbours per axis.
+    # The KB window is not normalised (the deapodisation divides it out): a
+    # weight product reaches (I0(beta) / 2kw)^2, 8e21 at kw 6.5, so the grids
+    # are scaled by its inverse to keep the float32 norms finite
+    def kb_unit(kww, b):
+        return (2 * kww / float(np.i0(b))) ** 2
+
+    derr_wide = {}
+    for kww in (4.0, 6.5):
+        b = kb_beta(kww, 2.0)
+        for name, n, C, npe, nro in (("nxos256 C6", 256, 6, 48, 256),
+                                     ("nxos512 C6 npe204", 512, 6, 204, 512),
+                                     ("nxos128 C10 odd nro127", 128, 10, 30, 127)):
+            g = cgrid(C, n, n) * kb_unit(kww, b)
+            ang = spoke_angles(npe, "golden", 19000, device=dev)
+            for wrap in (True, False):
+                got = degrid_cuda.degrid_radial2d(g, ang, nro, kww, b, wrap=wrap)
+                again = degrid_cuda.degrid_radial2d(g, ang, nro, kww, b, wrap=wrap)
+                want = degrid_plain(g, ang, nro, kww, b, wrap=wrap)
+                torch.cuda.synchronize()
+                e = nrmse(got, want)
+                same = torch.equal(got, again)
+                mae = float((got - want).abs().max())
+                log("degrid", f"kw {kww} ({int(2 * kww) + 1} neighbours per axis) {name} "
+                    f"{'wrap' if wrap else 'clip'}: nrmse {e:.3e} max_abs_err {mae:.3e} of max "
+                    f"{float(want.abs().max()):.3e} (tol {KERNEL_TOL}); repeat run bitwise equal: {same}")
+                require(bool(torch.isfinite(want).all()) and float(want.abs().max()) > 0,
+                        f"degrid kw {kww} {name}: the plain version is not finite and nonzero")
+                require(e <= KERNEL_TOL, f"degrid vs plain kw {kww} {name} wrap={wrap}: {e:.3e}")
+                require(same, f"repeat degrid run is not bitwise equal: kw {kww} {name}")
+                derr_wide[kww] = mae
+            del g, got, again, want
+
     # -- 9 exact lattice -----------------------------------------------------
     for gos in (1.5, 2.0, 2.5):
         nxos = int(256 * gos)
@@ -452,6 +507,22 @@ def main() -> int:
         rel = abs(lhs - rhs) / abs(rhs)
         log("dot", f"gridos {gos}: |<y,Ax> - <A^H y,x>| / |<A^H y,x>| = {rel:.3e} (tol {DOT_TOL})")
         require(rel < DOT_TOL, f"dot test gridos {gos}: {rel:.3e}")
+
+    for kww in (4.0, 6.5):
+        b = kb_beta(kww, 2.0)
+        npe = 24
+        x = cgrid(2, 512, 512) * kb_unit(kww, b)
+        y = cgrid(2, npe, 512)
+        y[..., 0] = 0
+        ang = spoke_angles(npe, "golden", 2, device=dev)
+        Ax = degrid_cuda.degrid_radial2d(x, ang, 512, kww, b, wrap=False)
+        AHy = grid_cuda.grid_radial2d(y, ang, 512, kww, b) * (512 * npe)
+        lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+        rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+        rel = abs(lhs - rhs) / abs(rhs)
+        log("dot", f"kw {kww}, gridos 2: |<y,Ax> - <A^H y,x>| / |<A^H y,x>| = {rel:.3e} "
+            f"(tol {DOT_TOL})")
+        require(rel < DOT_TOL, f"dot test kw {kww}: {rel:.3e}")
 
     # -- 11 forward main path ------------------------------------------------
     from tron_tpu_torch.nufft import nufft_adjoint, nufft_forward
@@ -875,7 +946,8 @@ def main() -> int:
             rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "--stream", "-g", "0", fin, fout])
             wall = time.perf_counter() - t0
         require(rc == 0, f"profiled --stream: exit {rc}")
-        ka = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ka = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in wrapper_ranges]
         busy = sum(e.self_device_time_total for e in ka) / 1e6
         # every gridding kernel's passes: grid_tile_* (B1, B5, and the items
         # and reduce passes of B4) and grid_seg_* (B4)
@@ -916,6 +988,331 @@ def main() -> int:
             f"us, {len(per)} kernels; most: { {k[:48]: round(v, 2) for k, v in top} } on {card}")
         del kfn
 
+    # -- 20 koosh: the -3 stack of stars at whole-body width -------------------
+    from tron_tpu_torch import recon as recon_mod
+    from tron_tpu_torch.ops import coil
+
+    NPE2, KNPE1, KNZI = 32, 816, 4
+
+    def kz_slice(stack, b, inverse):
+        """Slice b of the centred, unnormalised kz transform along axis 0 of a
+        host array, as one weighted sum: sum_k w[k] stack[k] with w[k] =
+        exp(+-2 pi i (k - N/2)(b - N/2) / N)."""
+        N = stack.shape[0]
+        k = np.arange(N) - N // 2
+        w = np.exp((2j if inverse else -2j) * np.pi * k * (b - N // 2) / N)
+        return np.tensordot(w.astype(np.complex64), stack, axes=1)
+
+    def fresh_counts():
+        grid_cuda.reset_launches()
+        degrid_cuda.reset_launches()
+
+    def counts_now():
+        return dict(grid_cuda.LAUNCH_COUNTS, degrid_radial2d=degrid_cuda.LAUNCHES)
+
+    t0 = time.perf_counter()
+    # in disk order (kz slowest, coil fastest): the payload of the .ra of
+    # phase 21, viewed as (nc, nt, nro, npe1, npe2)
+    kT = np.empty((NPE2, KNPE1, NRO, 1, NC), np.complex64)
+    kT.real[...] = rng.standard_normal(kT.shape, dtype=np.float32)
+    kT.imag[...] = rng.standard_normal(kT.shape, dtype=np.float32)
+    kdata = kT.T
+    log("koosh", f"synthesized {kdata.shape} complex64, {kdata.nbytes / 1e6:.0f} MB, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kcfg = ReconConfig(golden_angle=True, data_undersamp=0.4, adjoint=True, koosh=True)
+    kcfg2 = dataclasses.replace(kcfg, koosh=False, prof_slide=0)
+    require(kcfg2.frame_geometry(NRO, KNPE1) == (work, work, KNZI), "stack-of-stars geometry")
+    new_counts = {k: 0 for k in (*grid_cuda.KERNELS, "degrid_radial2d")}
+
+    def counted(want: dict, what: str):
+        """The launches since fresh_counts() are exactly ``want``; they join
+        the main paths' totals."""
+        got = {k: v for k, v in counts_now().items() if v}
+        require(got == want, f"{what}: launches {got}, expected {want}")
+        for k, v in got.items():
+            new_counts[k] += v
+
+    kouts = {}
+    for half in (False, True):
+        fresh_counts()
+        t0 = time.perf_counter()
+        kouts[half] = recon_radial2d(kdata, kcfg, half_readback=half, device=dev)
+        wall = time.perf_counter() - t0
+        log("koosh", f"recon_radial2d -3 -a -G -u 0.4{' (float16 readback)' if half else ''}: out "
+            f"{kouts[half].shape} {kouts[half].dtype}, launches {counts_now()}, host wall "
+            f"{wall:.3f} s (incl. transfers) on {card}")
+        counted({"grid_radial2d": NPE2 * KNZI}, "koosh adjoint")
+    kout = kouts[False]
+    require(kout.shape == (NPE2 * KNZI, 1, n_img, n_img), f"koosh shape {kout.shape}")
+    require(bool(np.isfinite(kout).all()), "koosh output not finite")
+    e = nrmse(kouts[True], kout)
+    log("koosh", f"float16 readback vs complex64 readback: nrmse {e:.3e} (tol 2^-11)")
+    require(e <= 2.0**-11, f"koosh half readback {e:.3e}")
+    # the kz axis decouples: slice b is the 2-D recon of slice b of the kz
+    # transform, taken here on the host; twice through the plain gridder,
+    # once through the kernel
+    for b, backend in ((0, "jnp"), (17, "jnp"), (31, "auto")):
+        slb = np.ascontiguousarray(kz_slice(kT, b, True)[:, :, 0].transpose(2, 0, 1))
+        ref = recon_frames(torch.from_numpy(slb).to(dev), dataclasses.replace(kcfg2, backend=backend),
+                           work, work, KNZI)
+        e = nrmse(kout[b * KNZI:(b + 1) * KNZI, 0], ref.cpu())
+        how = "the plain gridder" if backend == "jnp" else "recon_frames (kernel)"
+        log("koosh", f"slice {b}: -3 output vs {how} on the host-side kz transform: nrmse {e:.3e} "
+            f"(tol {KERNEL_TOL})")
+        require(e <= KERNEL_TOL, f"koosh slice {b} vs {how}: {e:.3e}")
+    kd = recon_mod._upload(kdata, dev)
+    t_fft = timed(lambda: recon_mod._koosh_kz_ifft(kd), 3)
+    ksl = recon_mod._koosh_kz_ifft(kd)
+    del kd
+
+    def kblocks():
+        for b0 in range(0, NPE2, 8):
+            recon_mod._koosh_slice_block(ksl, b0, 8, kcfg2, work, work, KNZI)
+
+    t_blk = timed(kblocks, 2)
+    frame2d_ms = NC * NRO * work / (rates["direct"] * 1e3)
+    log("koosh", f"adjoint on device-resident data: kz transform {1e3 * t_fft:.3f} ms, "
+        f"{NPE2 * KNZI} slice-frames in {1e3 * t_blk:.2f} ms = {1e3 * t_blk / (NPE2 * KNZI):.4f} ms "
+        f"per slice-frame (a 2-D direct frame: {frame2d_ms:.4f} ms) = "
+        f"{NPE2 * NC * NRO * KNPE1 / t_blk / 1e6:.1f} Msamples/s on {card}")
+    del ksl
+
+    kimgs = (rng.standard_normal((NC, 1, n_img, n_img, NPE2), dtype=np.float32)
+             + 1j * rng.standard_normal((NC, 1, n_img, n_img, NPE2), dtype=np.float32)
+             ).astype(np.complex64)
+    kfcfg = ReconConfig(golden_angle=True, data_undersamp=1.0, koosh=True)
+    fresh_counts()
+    t0 = time.perf_counter()
+    kfout = recon_radial2d(kimgs, kfcfg, device=dev)
+    wall = time.perf_counter() - t0
+    log("koosh", f"recon_radial2d -3 -G -u 1 on {kimgs.shape}: out {kfout.shape} {kfout.dtype}, "
+        f"launches {counts_now()}, host wall {wall:.3f} s (incl. transfers) on {card}")
+    counted({"degrid_radial2d": NPE2}, "koosh forward")
+    require(kfout.shape == (NPE2, NC, 1, NRO, NRO), f"koosh forward shape {kfout.shape}")
+    require(bool(np.isfinite(kfout).all()), "koosh forward output not finite")
+    for z in (0, 21):
+        dz = kz_slice(kfout, z, True)[:, 0] / NPE2
+        img_z = torch.from_numpy(np.ascontiguousarray(kimgs[:, 0, :, :, z].transpose(0, 2, 1))).to(dev)
+        ref = nufft_forward(img_z, fang, dataclasses.replace(fcfg, backend="jnp"), nro=NRO)
+        e = nrmse(dz, ref.cpu())
+        log("koosh", f"slice {z}: host-side inverse kz transform of the -3 forward vs the plain "
+            f"forward: nrmse {e:.3e} (tol {KERNEL_TOL})")
+        require(e <= KERNEL_TOL, f"koosh forward slice {z}: {e:.3e}")
+    kfd = recon_mod._upload(kimgs, dev).permute(4, 0, 1, 3, 2).reshape(NPE2, NC, n_img, n_img)
+    kfcfg2 = dataclasses.replace(kfcfg, koosh=False, prof_slide=0)
+    t_kf = timed(lambda: recon_mod._koosh_forward_device(kfd, kfcfg2, NRO, NRO), 2)
+    log("koosh", f"forward on device-resident data: {NPE2} slices in {1e3 * t_kf:.2f} ms = "
+        f"{1e3 * t_kf / NPE2:.4f} ms per slice = {NPE2 * NC * NRO * NRO / t_kf / 1e6:.1f} Msamples/s "
+        f"on {card}")
+    del kfd, kfout
+    # two repetitions at a smaller depth: 4 kz encodings, 2 in-plane frames;
+    # the forward's degridding call then carries 2*nc*nt = 24 real channels
+    k2 = cgrid(NC, 2, NRO, 2 * work, 4).cpu().numpy()
+    fresh_counts()
+    o2 = recon_radial2d(k2, kcfg, device=dev)
+    counted({"grid_radial2d": 4 * 2 * 2}, "koosh adjoint nt 2")
+    p2 = recon_radial2d(k2, dataclasses.replace(kcfg, backend="jnp"), device=dev)
+    e = nrmse(o2, p2)
+    log("koosh", f"nt 2, npe2 4: adjoint out {o2.shape} vs the plain gridder: nrmse {e:.3e} "
+        f"(tol {KERNEL_TOL})")
+    require(o2.shape == (8, 2, n_img, n_img) and e <= KERNEL_TOL, f"koosh nt 2 adjoint {e:.3e}")
+    f2 = cgrid(NC, 2, n_img, n_img, 4).cpu().numpy()
+    fresh_counts()
+    fo2 = recon_radial2d(f2, kfcfg, device=dev)
+    counted({"degrid_radial2d": 4}, "koosh forward nt 2")
+    fp2 = recon_radial2d(f2, dataclasses.replace(kfcfg, backend="jnp"), device=dev)
+    e = nrmse(fo2, fp2)
+    log("koosh", f"nt 2, nz 4: forward out {fo2.shape} (24 real channels per degridding call) vs "
+        f"the plain degridder: nrmse {e:.3e} (tol {KERNEL_TOL})")
+    require(fo2.shape == (4, NC, 2, NRO, NRO) and e <= KERNEL_TOL, f"koosh nt 2 forward {e:.3e}")
+    del k2, o2, p2, f2, fo2, fp2
+
+    # -- 21 kstream: tron-torch -3 --stream on the same stack ------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        fin, fout = os.path.join(tmp, "stack.ra"), os.path.join(tmp, "out.ra")
+        t0 = time.perf_counter()
+        ra_write(kdata, fin)
+        log("kstream", f"wrote the stack {kdata.shape} complex64, {os.path.getsize(fin) / 1e6:.1f} "
+            f"MB, in {time.perf_counter() - t0:.2f} s")
+        for name, extra, env in (
+            ("--stream", [], {}),
+            ("--stream --half", ["--half"], {}),
+            ("TRON_BATCHED=1 --stream", [], {"TRON_BATCHED": "1"}),
+        ):
+            os.environ.update(env)
+            fresh_counts()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(["-3", "-a", "-G", "-u", "0.4", "--stream", "-g", "0", *extra, fin, fout])
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"-3 {name}: exit {rc}")
+            kernel = "grid_radial2d_batched" if env else "grid_radial2d"
+            counts = counts_now()
+            counted({kernel: NPE2 * KNZI}, f"-3 {name}")
+            res = ra_read(fout)
+            if "--half" in extra:
+                require(res.shape == (2, 1, 1, n_img, n_img, NPE2 * KNZI) and res.dtype == np.float16,
+                        f"-3 {name}: {res.shape} {res.dtype}")
+                pair = res[:, 0, 0].transpose(0, 3, 2, 1)
+                frames = pair[0].astype(np.float32) + 1j * pair[1].astype(np.float32)
+                ref, what = kouts[True][:, 0], "in-memory -3 with float16 readback"
+            else:
+                require(res.shape == (1, 1, n_img, n_img, NPE2 * KNZI) and res.dtype == np.complex64,
+                        f"-3 {name}: {res.shape} {res.dtype}")
+                frames = res[0, 0].transpose(2, 1, 0)
+                ref, what = kout[:, 0], "in-memory -3"
+            e = nrmse(frames, ref)
+            same = np.array_equal(frames, ref)
+            log("kstream", f"tron-torch -3 -a -G -u 0.4 {name}: file to file {wall:.3f} s host wall = "
+                f"{NPE2 * NC * NRO * KNPE1 / wall / 1e6:.1f} Msamples/s; launches {counts}; vs {what}: "
+                f"nrmse {e:.3e}, bitwise equal {same} on {card}")
+            require(e <= 1e-5, f"-3 {name}: nrmse {e:.3e} vs {what}")
+            os.remove(fout)
+    del kT, kdata, kouts, kout
+
+    # -- 22 walsh and in-memory coil compression --------------------------------
+    NW = 64
+    wcfg = dataclasses.replace(cfg, coil_combine="walsh")
+    win = np.ascontiguousarray(indata[..., : work + (NW - 1) * SLIDE])
+    fresh_counts()
+    t0 = time.perf_counter()
+    wout = recon_radial2d(win, wcfg, device=dev)
+    wall = time.perf_counter() - t0
+    log("walsh", f"recon_radial2d -a -G -u 0.4 -d {SLIDE} --combine walsh on {NW} whole-body frames: "
+        f"out {wout.shape}, launches {counts_now()}, host wall {wall:.3f} s (incl. transfers); "
+        f"|walsh| vs the SoS recon: nrmse {nrmse(np.abs(wout[:, 0]), np.abs(outs['direct'][:NW])):.3e} "
+        f"(random data, not a bound)")
+    counted({"grid_radial2d": NW}, "walsh")
+    require(wout.shape == (NW, 1, n_img, n_img) and bool(np.isfinite(wout).all()), "walsh output")
+    # Walsh's 5 power iterations vs the dominant eigenvector of the same boxed
+    # covariance from a float64 dense eigen-solve, on 2 frames of the 6-coil
+    # phantom (coil images have a dominant eigenvector per pixel; noise has not)
+    wang = spoke_angles(work + SLIDE, "golden", 0, device=dev)
+    wdata = nufft_forward(pimg, wang, scfg)
+    ncfg = dataclasses.replace(cfg, coil_combine="none")
+    cimgs = recon_frames(wdata, ncfg, work, SLIDE, 2)      # (2, nc, n, n)
+    wimgs = recon_frames(wdata, wcfg, work, SLIDE, 2)      # (2, n, n)
+    for z in range(2):
+        c = cimgs[z].to(torch.complex128)
+        cov = coil._box_filter(torch.einsum("iyx,jyx->ijyx", c, c.conj()), wcfg.walsh_npatch)
+        _, vecs = torch.linalg.eigh(cov.permute(2, 3, 0, 1).cpu())
+        v = vecs[..., -1].permute(2, 0, 1).to(dev)         # dominant eigenvector per pixel
+        dense = (v.conj() * c).sum(0).abs()
+        e = nrmse(wimgs[z].abs().double(), dense)
+        log("walsh", f"phantom frame {z}: |Walsh, 5 power iterations| vs |float64 dense eigen-solve|: "
+            f"nrmse {e:.3e} (tol 1e-3)")
+        require(e <= 1e-3, f"walsh vs dense eigen-solve frame {z}: {e:.3e}")
+    ci0 = cimgs[0].contiguous()
+    t_w = [timed(lambda: coil.coil_combine_sos(ci0), 20), timed(lambda: coil.coil_combine_walsh(ci0, 1), 20),
+           timed(lambda: coil.coil_combine_walsh(ci0, 1), 20), timed(lambda: coil.coil_combine_sos(ci0), 20)]
+    walsh_ms = 1e3 * (t_w[1] + t_w[2]) / 2
+    log("walsh", f"one frame of 6 x 256^2 coil images: Walsh (npatch 1, 5 iterations) {walsh_ms:.4f} ms, "
+        f"SoS {1e3 * (t_w[0] + t_w[3]) / 2:.4f} ms (sos, walsh, walsh, sos: "
+        f"{[round(1e3 * t, 4) for t in t_w]}) on {card}")
+    # --compress 3 in memory (eigh of the coil Gram matrix on the card) vs
+    # --stream --compress 3 (the basis from a disk pass): the same series with
+    # coil c scaled by 1 - 0.12 c, so that its top-3 coil subspace is well
+    # separated (iid coils have a degenerate Gram spectrum)
+    with tempfile.TemporaryDirectory() as tmp:
+        fin = os.path.join(tmp, "scaled.ra")
+        scale = (1 - 0.12 * np.arange(NC, dtype=np.float32)).reshape(NC, 1, 1, 1)
+        ra_write((win * scale).astype(np.complex64)[..., None], fin)
+        imgs = {}
+        for name, extra in (("in memory", []), ("--stream", ["--stream"])):
+            fout = os.path.join(tmp, f"c{len(imgs)}.ra")
+            fresh_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "--compress", "3", "-g", "0",
+                           *extra, fin, fout])
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"--compress 3 {name}: exit {rc}")
+            log("compress", f"tron-torch -a -G -u 0.4 -d {SLIDE} --compress 3 {name}: {wall:.3f} s host "
+                f"wall, launches {counts_now()}")
+            counted({"grid_radial2d": NW}, f"--compress 3 {name}")
+            imgs[name] = ra_read(fout)
+            require(imgs[name].shape == (1, 1, n_img, n_img, NW), f"--compress dims {imgs[name].shape}")
+        e = nrmse(np.abs(imgs["in memory"]), np.abs(imgs["--stream"]))
+        log("compress", f"SoS images of 3 virtual coils, in memory vs --stream: nrmse {e:.3e} (tol 1e-4)")
+        require(e <= 1e-4, f"--compress in memory vs --stream: {e:.3e}")
+    del win, wout, imgs
+
+    # -- 23 cli3: the rest of the CLI and the fixture tools -----------------------
+    from tron_tpu_torch.tools import make_goldenangle, make_phantom
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        make_phantom.main([path("sl.ra"), "--n", str(n_img)])
+        truth = np.abs(shepp_logan(n_img)).T.ravel()
+
+        def corr(f):
+            return float(np.corrcoef(np.abs(ra_read(f)[0, 0, :, :, 0]).ravel(), truth)[0, 1])
+
+        fresh_counts()
+        require(cli.main(["-g", "0", path("sl.ra"), path("data.ra")]) == 0, "cli3 forward")
+        require(cli.main(["-a", "--scheme", "linear_half", "-B", "4096", "-T", "128", "-g", "0",
+                          path("data.ra"), path("img.ra")]) == 0, "cli3 adjoint -B -T")
+        counted({"grid_radial2d": 1, "degrid_radial2d": 1}, "cli3 roundtrip")
+        c = corr(path("img.ra"))
+        log("cli3", f"make_phantom --n {n_img} -> tron-torch -> tron-torch -a --scheme linear_half "
+            f"-B 4096 -T 128: data dims {ra_read(path('data.ra')).shape}, correlation with the "
+            f"phantom {c:.4f} (> 0.9)")
+        require(c > 0.9, f"linear-angle roundtrip correlation {c:.4f}")
+        fresh_counts()
+        require(cli.main(["-k", "4", "-g", "0", path("sl.ra"), path("d4.ra")]) == 0, "cli3 -k 4 forward")
+        require(cli.main(["-a", "-k", "4", "-i", "2", "--scheme", "linear_half", "-g", "0",
+                          path("d4.ra"), path("i4.ra")]) == 0, "cli3 -k 4 -i 2")
+        counted({"grid_radial2d": 3, "degrid_radial2d": 3}, "cli3 -k 4")
+        r4 = ra_read(path("i4.ra"))
+        log("cli3", f"tron-torch -k 4 forward, then -a -k 4 -i 2 --scheme linear_half: out dims "
+            f"{r4.shape}, correlation with the phantom {corr(path('i4.ra')):.4f}")
+        require(r4.shape == (1, 1, n_img, n_img, 1) and bool(np.isfinite(r4).all()), "cli3 -k 4 output")
+        base_img = ra_read(path("img.ra"))
+        for flags in (["--backend", "pallas"], ["--precision", "accurate"],
+                      ["--profile", path("prof")]):
+            fresh_counts()
+            require(cli.main(["-a", "--scheme", "linear_half", *flags, "-g", "0", path("data.ra"),
+                              path("o.ra")]) == 0, f"cli3 {flags}")
+            counted({"grid_radial2d": 1}, f"cli3 {flags[0]}")
+            same = np.array_equal(ra_read(path("o.ra")), base_img)
+            log("cli3", f"tron-torch -a --scheme linear_half {flags[0]} {flags[1] if flags[0] != '--profile' else 'DIR'}: "
+                f"bitwise equal to the default run: {same}")
+            require(same, f"cli3 {flags[0]} changed the images")
+        traces = [f for f in os.listdir(path("prof")) if f.endswith(".trace.json")]
+        require(len(traces) == 1, f"--profile wrote {traces}")
+        with open(os.path.join(path("prof"), traces[0])) as f:
+            trace = f.read()
+        log("cli3", f"--profile DIR: {traces[0][:11]}...trace.json, {len(trace) / 1e3:.0f} kB, names "
+            f"grid_radial2d: {'grid_radial2d' in trace}, the contraction pass: "
+            f"{'grid_tile_contract_kernel' in trace}")
+        require("grid_radial2d" in trace and "grid_tile_contract_kernel" in trace,
+                "the --profile trace does not name the gridding kernel")
+        fresh_counts()
+        rc = cli.main(["-a", "-k", "7", "-g", "0", path("data.ra"), path("o7.ra")])
+        log("cli3", f"tron-torch -a -k 7: exit {rc}, launches {sum(counts_now().values())}")
+        require(rc == 2 and not os.path.exists(path("o7.ra")) and not sum(counts_now().values()),
+                "-k 7 must exit 2 before any work")
+        # the recipe's golden-angle multicoil path at nxos 128: B2's contract
+        # (grids that do not tile in the Pallas kernel) on B1's kernel
+        fresh_counts()
+        make_goldenangle.main([path("ga.ra"), "--nc", "4", "--nro", "128", "--npe", "96"])
+        counted({"degrid_radial2d": 1}, "make_goldenangle")
+        fresh_counts()
+        require(cli.main(["-a", "-G", "-u", "0.5", "-d", "21", "-g", "0", path("ga.ra"),
+                          path("ga_img.ra")]) == 0, "cli3 golden-angle fixture")
+        b2_launches = grid_cuda.LAUNCH_COUNTS["grid_radial2d"]
+        require(counts_now() == {**dict.fromkeys(grid_cuda.KERNELS, 0), "grid_radial2d": 2,
+                                 "degrid_radial2d": 0}, f"cli3 golden-angle launches {counts_now()}")
+        ga = ra_read(path("ga_img.ra"))
+        cga = float(np.corrcoef(np.abs(ga[0, 0, :, :, 0]).ravel(), np.abs(shepp_logan(64)).T.ravel())[0, 1])
+        log("cli3", f"make_goldenangle --nc 4 --nro 128 --npe 96 -> tron-torch -a -G -u 0.5 -d 21: out "
+            f"dims {ga.shape}, {b2_launches} launches at nxos 128, correlation with the phantom {cga:.4f}")
+        require(ga.shape == (1, 1, 64, 64, 2) and bool(np.isfinite(ga).all()), "cli3 golden-angle output")
+    log("paths", f"launches of phases 20-23 by kernel: {new_counts}; at nxos 128 (B2's contract): "
+        f"{b2_launches}")
+
     g_bound, g_by = grid_bound(wb_planes, wb_ang, 512)
     d_bound, d_by = degrid_bound(kg, dang, NRO)
     # B2's contract (_grid_kernel: grids that do not tile, nxos < 256) runs on
@@ -939,7 +1336,7 @@ def main() -> int:
             "name": "grid_radial2d",
             "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
             "replaces": "tron_tpu/ops/grid_pallas.py:933",
-            "launches": launches + cg_grid + stream_b1,
+            "launches": launches + cg_grid + stream_b1 + new_counts["grid_radial2d"],
             "max_abs_err": err512,
             "ms": kern_ms,
             "kernel_ms": kern_dev_ms,
@@ -947,10 +1344,24 @@ def main() -> int:
             **common,
         },
         {
+            # B2's contract (grids that do not tile in the Pallas kernel) runs
+            # on B1's kernel: its row is that kernel at nxos 128
+            "name": "grid_radial2d (nxos 128)",
+            "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
+            "replaces": "tron_tpu/ops/grid_pallas.py:485",
+            "launches": b2_launches,
+            "max_abs_err": err128,
+            "ms": 1e3 * (t2[1] + t2[2]) / 2,
+            "plain_ms": 1e3 * (t2[0] + t2[3]) / 2,
+            **common,
+            "bound_ms": b2_bound,
+            "bound_by": b2_by,
+        },
+        {
             "name": "grid_radial2d_batched",
             "source": "tron_tpu_torch/csrc/grid_radial2d_batched.cu",
             "replaces": "tron_tpu/ops/grid_pallas.py:1161",
-            "launches": stream_b5,
+            "launches": stream_b5 + new_counts["grid_radial2d_batched"],
             "max_abs_err": bat_err,
             "ms": bat_ms,
             "kernel_ms": bat_dev_ms,
@@ -972,8 +1383,10 @@ def main() -> int:
             "name": "degrid_radial2d",
             "source": "tron_tpu_torch/csrc/degrid_radial2d.cu",
             "replaces": "tron_tpu/ops/degrid_pallas.py:44",
-            "launches": fwd_launches + cg_degrid,
+            "launches": fwd_launches + cg_degrid + new_counts["degrid_radial2d"],
             "max_abs_err": derr512,
+            "max_abs_err_kw4": derr_wide[4.0],
+            "max_abs_err_kw6.5": derr_wide[6.5],
             "ms": dkern_ms,
             "kernel_ms": dbare_ms,
             "plain_ms": dplain_ms,

@@ -159,7 +159,7 @@ def test_degrid_wrapper_raises_on_bad_input(dev):
         degrid_cuda.degrid_radial2d(g.to(torch.complex128), torch.zeros(4, device=dev), 64,
                                     KW, BETA)
     with pytest.raises(ValueError):
-        degrid_cuda.degrid_radial2d(g, torch.zeros(4, device=dev), 64, 4.0, BETA)
+        degrid_cuda.degrid_radial2d(g, torch.zeros(4, device=dev), 64, 7.0, BETA)
 
 
 @pytest.mark.gpu
@@ -274,3 +274,138 @@ def test_streaming_matches_in_memory(dev, tmp_path, monkeypatch, mode):
         assert _nrmse(torch.from_numpy(got), torch.from_numpy(want)) <= 1e-5
     else:
         assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def _kb_unit(kw, beta) -> float:
+    """The KB window is not normalised (the deapodisation divides it out): a
+    weight product reaches (I0(beta) / 2kw)^2, 8e21 at kw 6.5.  Grids scaled
+    by its inverse keep the samples, and their float32 norms, near 1."""
+    return (2 * kw / float(np.i0(beta))) ** 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("kw", [3.9, 4.0, 6.5])
+@pytest.mark.parametrize("n,C,npe,nro", [(64, 1, 8, 64), (256, 6, 48, 256), (128, 10, 30, 127)])
+def test_degrid_wide_kernel_matches_plain(dev, wrap, kw, n, C, npe, nro):
+    """Kernel widths on both sides of the narrow instantiation's 8
+    neighbours per axis: 3.9 is its last width, 4 and 6.5 (9 and 14
+    neighbours) run the wide one."""
+    beta = kb_beta(kw, 2.0)
+    rng = np.random.default_rng(n + C + int(10 * kw))
+    g = _complex(rng, (C, n, n), dev) * _kb_unit(kw, beta)
+    ang = spoke_angles(npe, "golden", 19000, device=dev)
+    got = degrid_cuda.degrid_radial2d(g, ang, nro, kw, beta, wrap=wrap)
+    again = degrid_cuda.degrid_radial2d(g, ang, nro, kw, beta, wrap=wrap)
+    want = degrid_radial2d(g, ang, nro, kw, beta, wrap=wrap)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all() and 0.01 < float(want.abs().max()) < 1e4
+    assert _nrmse(got, want) <= TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [4.0, 6.5])
+def test_kernel_pair_dot_test_wide(dev, kw):
+    nro = nxos = 256
+    npe = 9
+    beta = kb_beta(kw, 2.0)
+    rng = np.random.default_rng(3)
+    x = _complex(rng, (2, nxos, nxos), dev) * _kb_unit(kw, beta)
+    y = _complex(rng, (2, npe, nro), dev)
+    y[..., 0] = 0
+    ang = spoke_angles(npe, "golden", 2, device=dev)
+    Ax = degrid_cuda.degrid_radial2d(x, ang, nro, kw, beta, wrap=False)
+    AHy = grid_cuda.grid_radial2d(y, ang, nxos, kw, beta) * (nxos * npe)
+    assert 0.01 < float(Ax.abs().max()) < 1e4
+    lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+    rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+    assert abs(lhs - rhs) / abs(rhs) < 1e-4
+
+
+def _host_complex(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("half", [False, True])
+def test_koosh_adjoint_on_the_card(dev, half):
+    """-3 adjoint, 6 coils, 2 repetitions, 12 kz slices (two blocks of 8
+    with a realigned tail): the kernel once per slice, repetition and
+    in-plane frame, vs the plain gridder on the card."""
+    import dataclasses
+
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.recon import recon_radial2d
+
+    d = _host_complex(1, (6, 2, 256, 200, 12))
+    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25)
+    grid_cuda.reset_launches()
+    got = recon_radial2d(d, cfg, half_readback=half, device=dev)
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == (8 + 8) * 2 * 3  # the tail block overlaps
+    want = recon_radial2d(d, dataclasses.replace(cfg, backend="jnp"), device=dev)
+    assert got.shape == want.shape == (36, 2, 128, 128)
+    assert _nrmse(torch.from_numpy(got), torch.from_numpy(want)) <= (2.0**-11 if half else TOL)
+
+
+@pytest.mark.gpu
+def test_koosh_forward_on_the_card(dev):
+    """-3 forward with nt 2 and 6 coils: 24 real channels per degridding
+    call, two channel blocks of the kernel."""
+    import dataclasses
+
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.recon import recon_radial2d
+
+    imgs = _host_complex(2, (6, 2, 64, 64, 5))
+    cfg = ReconConfig(koosh=True, golden_angle=True, data_undersamp=0.5)
+    degrid_cuda.reset_launches()
+    got = recon_radial2d(imgs, cfg, device=dev)
+    assert degrid_cuda.LAUNCHES == 5
+    want = recon_radial2d(imgs, dataclasses.replace(cfg, backend="jnp"), device=dev)
+    assert got.shape == want.shape == (5, 6, 2, 64, 128)
+    assert _nrmse(torch.from_numpy(got), torch.from_numpy(want)) <= TOL
+
+
+@pytest.mark.gpu
+def test_koosh_streaming_on_the_card(dev, tmp_path):
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.io import ra_write
+    from tron_tpu_torch.recon import recon_koosh_streaming, recon_radial2d
+
+    d = _host_complex(3, (4, 1, 128, 7 * 32 + 5, 10))
+    ra_write(d, tmp_path / "d.ra")
+    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25)
+    mem = recon_radial2d(d, cfg, device=dev)
+    got = recon_koosh_streaming(tmp_path / "d.ra", cfg, batch_frames=3, device=dev)
+    assert got.shape == mem.shape == (70, 1, 64, 64)
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(mem))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["walsh", "walsh-incremental", "compress"])
+def test_walsh_and_compress_on_the_card(dev, mode):
+    """Walsh and in-memory compression are plain torch on the data's device:
+    the card's images vs the same recon on the CPU (Walsh: 1e-4, the power
+    iteration amplifies the two devices' rounding; compression by
+    root-sum-of-squares, a virtual coil being fixed up to a phase)."""
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.recon import recon_radial2d
+
+    # three sources of falling strength mixed into 6 coils, plus noise: the
+    # top-3 coil subspace is well separated from the rest
+    base = _host_complex(4, (3, 1, 128, 51 + 3 * 21)) * np.array([1, 0.5, 0.25]).reshape(3, 1, 1, 1)
+    mix = np.linalg.qr(_host_complex(5, (6, 3)))[0]
+    d = np.einsum("ck,ktrp->ctrp", mix, base) + 0.01 * _host_complex(6, (6, 1, 128, 51 + 3 * 21))
+    d = d.astype(np.complex64)
+    cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
+                      coil_combine="walsh" if "walsh" in mode else "sos",
+                      coil_compress=3 if mode == "compress" else 0,
+                      incremental="incremental" in mode)
+    grid_cuda.reset_launches()
+    got = recon_radial2d(d, cfg, device=dev)
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 4
+    want = recon_radial2d(d, cfg, device="cpu")
+    assert got.shape == want.shape == (4, 1, 64, 64)
+    assert _nrmse(torch.from_numpy(np.abs(got)), torch.from_numpy(np.abs(want))) <= 1e-4

@@ -71,6 +71,52 @@ def test_plain_gather_matches_jax(wrap, n, nro, kw):
     np.testing.assert_array_equal(one.numpy(), got[0].numpy())
 
 
+def _kb_unit(kw, beta) -> float:
+    """The KB window is not normalised (the deapodisation divides it out): a
+    weight product reaches (I0(beta) / 2kw)^2, 8e21 at kw 6.5.  Grids scaled
+    by its inverse keep the samples, and their float32 norms, near 1."""
+    return (2 * kw / float(np.i0(beta))) ** 2
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("kw", [4.0, 6.5])
+def test_plain_gather_wide_kernels_match_jax(wrap, kw):
+    """Kernel widths of 9 to 14 neighbours per axis (the card's wide
+    degridding instantiation; its plain version here) vs JAX's gather, at
+    the tolerance of tests/test_degrid_pallas.py:44."""
+    n, nro = 64, 64
+    beta = kb_beta(kw, 2.0)
+    g = _grid(int(10 * kw), 3, n) * np.complex64(_kb_unit(kw, beta))
+    ang = _angles(10, 19990)
+    assert int(2 * kw) + 1 in (9, 14) and int(2 * kw) + 1 <= degrid_cuda.MAX_OFF
+    want = np.asarray(
+        jdegrid.degrid_radial2d(
+            jnp.asarray(g), jnp.asarray(ang), nro, kw, beta, backend="gather", wrap=wrap
+        )
+    )
+    got = degrid_cuda.degrid_radial2d(_t(g), _t(ang), nro, kw, beta, wrap=wrap)
+    assert np.isfinite(want).all() and 0.01 < np.abs(want).max() < 1e4
+    assert got.shape == (3, 10, nro) and nrmse(got.numpy(), want) <= 2e-4
+
+
+@pytest.mark.parametrize("kw", [4.0, 6.5])
+def test_plain_pair_dot_test_wide_kernels(kw):
+    """The dot test of test_plain_pair_dot_test at the wide kernel widths."""
+    nro = nxos = 64
+    npe = 7
+    beta = kb_beta(kw, 2.0)
+    x = _t(_grid(8, 1, nxos)) * _kb_unit(kw, beta)
+    y = _t(_grid(9, 1, nro)[:, :npe])
+    y[..., 0] = 0  # readout 0 is never gridded
+    ang = _t(_angles(npe, 2))
+    Ax = degrid_cuda.degrid_radial2d(x, ang, nro, kw, beta, wrap=False)
+    AHy = grid_cuda.grid_radial2d(y, ang, nxos, kw, beta) * (nxos * npe)
+    assert 0.01 < float(Ax.abs().max()) < 1e4
+    lhs = complex(torch.vdot(y.reshape(-1), Ax.reshape(-1)))
+    rhs = complex(torch.vdot(AHy.reshape(-1), x.reshape(-1)))
+    assert abs(lhs - rhs) / abs(rhs) < 1e-4
+
+
 @pytest.mark.parametrize("wrap", [True, False])
 def test_dense_matches_jax(wrap):
     n, nro = 48, 64
@@ -195,8 +241,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         degrid_cuda._check(torch.zeros((1, 16, 8), dtype=torch.complex64), ang, 16, KW)
     with pytest.raises(ValueError, match="angles"):
         degrid_cuda._check(g, ang.double(), 16, KW)
+    degrid_cuda._check(g, ang, 16, 4.0)   # the wide instantiation's range
+    degrid_cuda._check(g, ang, 16, 6.5)
     with pytest.raises(ValueError, match="kernwidth"):
-        degrid_cuda._check(g, ang, 16, 4.0)
+        degrid_cuda._check(g, ang, 16, grid_cuda.MAX_KERNWIDTH)
     with pytest.raises(ValueError, match="nro"):
         degrid_cuda._check(g, ang, 0, KW)
     planes = torch.zeros((4, 16, 2))

@@ -85,8 +85,11 @@ def test_streaming_driver_matches_jax(tmp_path, incremental):
     "extra,shape",
     [([], (2, 1, 32, 200, 1)), (["--incremental"], (2, 1, 32, 200, 1)),
      (["--combine", "none"], (3, 1, 32, 72, 1)), (["-i", "2"], (2, 1, 32, 72, 1)),
-     ([], (2, 3, 32, 72, 1))],
-    ids=["plain", "incremental", "combine-none", "cgnr", "nt3"],
+     ([], (2, 3, 32, 72, 1)), (["--combine", "walsh"], (3, 1, 32, 72, 1)),
+     (["--combine", "walsh", "--incremental"], (3, 1, 32, 72, 1)),
+     (["--combine", "walsh", "-i", "2"], (3, 1, 32, 72, 1))],
+    ids=["plain", "incremental", "combine-none", "cgnr", "nt3", "walsh", "walsh-incremental",
+         "walsh-cgnr"],
 )
 def test_cli_stream_matches_tron_stream(tmp_path, on_cpu, extra, shape):
     p = _write(tmp_path, "d.ra", shape, 2)
@@ -145,6 +148,25 @@ def test_cli_stream_compress_matches_tron_stream(tmp_path, on_cpu, combine):
     assert ra_query(b).dims == ra_query(a).dims
     assert ra_query(b).dims[0] == (2 if combine == "none" else 1)
     assert nrmse(ra_read(b), ra_read(a)) <= 1e-5
+
+
+@pytest.mark.parametrize("combine", ["sos", "none"])
+def test_cli_compress_in_memory_matches_tron_and_stream(tmp_path, on_cpu, combine):
+    """--compress 2 without --stream (torch.linalg.eigh of the coil Gram
+    matrix on the device) vs `tron --compress 2`, and vs the streamed
+    compression, whose basis comes from a disk pass: the same subspace, each
+    virtual coil up to a phase, so root-sum-of-squares images agree."""
+    p = _write(tmp_path, "d.ra", (6, 2, 32, 120, 1), 5, low_rank=True)
+    args = ARGS + ["--compress", "2", "--combine", combine, str(p)]
+    a, b, c = (str(tmp_path / f"{k}.ra") for k in "abc")
+    assert jcli.main(args + [a]) == 0
+    assert cli.main(args + [b]) == 0
+    assert cli.main(args + [c, "--stream"]) == 0
+    assert ra_query(b).dims == ra_query(a).dims == ra_query(c).dims
+    assert ra_query(b).dims[0] == (2 if combine == "none" else 1)
+    sos = lambda x: np.sqrt((np.abs(x) ** 2).sum(axis=0))  # noqa: E731
+    assert nrmse(sos(ra_read(b)), sos(ra_read(a))) <= 1e-5
+    assert nrmse(sos(ra_read(b)), sos(ra_read(c))) <= 1e-4
 
 
 def test_stream_coil_basis_chunked_matches_jax(tmp_path):
@@ -208,17 +230,22 @@ def test_ra_writer_matches_jax(tmp_path):
 def test_stream_refusals(tmp_path, on_cpu, capsys):
     """Unported stream modes exit 2 naming the flag; input errors exit 1
     and leave no partial output; forward --stream notes it loads in
-    memory."""
+    memory.  The modes ported since (-3 --stream, --compress
+    without --stream, --stream --combine walsh) run."""
     p = _write(tmp_path, "d.ra", (2, 1, 32, 40, 1), 9)
     out = str(tmp_path / "o.ra")
     for argv, msg in (
-        (["-3", "-a", "--stream"], "error: -3"),
         (["-a", "--stream", "--shard"], "error: --shard"),
-        (["-a", "--compress", "2"], "error: --compress without --stream"),
-        (["-a", "--stream", "--combine", "walsh"], "error: --combine walsh"),
+        (["-a", "--stream", "--shard-spokes"], "error: --shard-spokes"),
     ):
         assert cli.main(argv + [str(p), out]) == 2
         assert msg in capsys.readouterr().err
+        assert not os.path.exists(out)
+    for argv in (["-3", "-a", "--stream"], ["-a", "--compress", "1"],
+                 ["-a", "--stream", "--combine", "walsh"]):
+        assert cli.main(argv + [str(p), out]) == 0
+        assert capsys.readouterr().err == "" and np.isfinite(ra_read(out)).all()
+        os.remove(out)
     assert cli.main(["-a", "--stream", str(tmp_path / "missing.ra"), out]) == 1
     capsys.readouterr()
     ra_write(np.zeros((2, 1, 32, 40), np.complex64), tmp_path / "d4.ra")

@@ -2,7 +2,8 @@
 beside it, which stays the reference).
 
 The golden-angle sliding-window adjoint recon (in memory or streamed from
-disk), the forward operator and the CGNR solver run here, with adjoint
+disk), the forward operator, the CGNR solver, the 3-D stack-of-stars recon
+(`-3`), the Walsh combine and coil compression run here, with adjoint
 gridding and forward degridding in hand-written CUDA kernels (`csrc/`: the
 tile gridder, its tensor-core variant, the segmented gridder and the
 degridder) and the rest in plain torch.  Module names follow tron_tpu's, so each

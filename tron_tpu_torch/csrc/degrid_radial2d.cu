@@ -53,7 +53,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 16;  // real channels per channel block
-constexpr int kMaxOff = 8;        // neighbours per axis: int(2 kw) + 1 <= 8
+// Neighbours per axis, noff = int(2 kw) + 1, that an instantiation holds in
+// registers: the narrow one (kw < 4, the default kw 2 has noff 5) and the
+// wide one up to the gridding kernels' limit (kw < 7).  Two instantiations,
+// so that the wide one's weight and offset arrays cost the narrow one no
+// registers.
+constexpr int kNarrowOff = 8;
+constexpr int kWideOff = 14;
 
 // v mod n for any int v; one compare on the common path, 0 <= v < n.
 __device__ __forceinline__ int wrap_index(int v, int n) {
@@ -65,7 +71,7 @@ __host__ __device__ constexpr int pow2_at_least(int v) {
   return v <= 1 ? 1 : 2 * pow2_at_least((v + 1) / 2);
 }
 
-template <int KP, int V>
+template <int KP, int V, int MAXOFF>
 __global__ void __launch_bounds__(kThreads)
 degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
                        const float* __restrict__ ct,    // (npe,)
@@ -75,7 +81,7 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
                        int npe, int nro, int n, int K, int noff, int wrap,
                        float kw, float beta) {
   constexpr int G = pow2_at_least(KP / V);  // lanes per sample
-  constexpr int PER = kMaxOff / G > 0 ? kMaxOff / G : 1;  // weights per lane and axis
+  constexpr int PER = (MAXOFF + G - 1) / G;  // weights per lane and axis
   constexpr int SPB = kThreads / G;         // samples per block step
   using Vec = typename std::conditional<V == 4, float4, float2>::type;
 
@@ -117,10 +123,10 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
         }
       }
     }
-    float wx[kMaxOff];
-    int ox[kMaxOff];
+    float wx[MAXOFF];
+    int ox[MAXOFF];
 #pragma unroll
-    for (int d = 0; d < kMaxOff; ++d) {
+    for (int d = 0; d < MAXOFF; ++d) {
       wx[d] = __shfl_sync(0xffffffffu, mx[(d / G) % PER], gbase | (d % G));
       ox[d] = wrap_index(x0 + d, n) * K;
     }
@@ -138,7 +144,7 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
         if (wy == 0.0f) continue;
         const float* row = grid + static_cast<size_t>(wrap_index(y0 + dy, n)) * n * K + k0 + g * V;
 #pragma unroll
-        for (int dx = 0; dx < kMaxOff; ++dx) {
+        for (int dx = 0; dx < MAXOFF; ++dx) {
           const float w = wx[dx] * wy;
           if (dx >= noff || w == 0.0f || !mine) continue;
           const Vec v = __ldg(reinterpret_cast<const Vec*>(row + ox[dx]));
@@ -160,14 +166,14 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
   }
 }
 
-template <int KP, int V>
+template <int KP, int V, int MAXOFF>
 void launch(const float* grid, const float* ct, const float* st,
            const float* rad, float2* out, int npe, int nro, int n, int K,
            int noff, int wrap, float kw, float beta, cudaStream_t stream) {
   static int per_sm = 0;  // resident blocks per SM, from the occupancy query
   if (per_sm == 0) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, degrid_radial2d_kernel<KP, V>, kThreads, 0);
+        &per_sm, degrid_radial2d_kernel<KP, V, MAXOFF>, kThreads, 0);
     if (per_sm < 1) per_sm = 1;
   }
   int dev = 0, sms = 0;
@@ -177,24 +183,41 @@ void launch(const float* grid, const float* ct, const float* st,
   const long long need = (static_cast<long long>(npe) * nro + spb - 1) / spb;
   const long long full = static_cast<long long>(sms) * per_sm;
   const int blocks = static_cast<int>(need < full ? need : full);
-  degrid_radial2d_kernel<KP, V><<<blocks, kThreads, 0, stream>>>(
+  degrid_radial2d_kernel<KP, V, MAXOFF><<<blocks, kThreads, 0, stream>>>(
       grid, ct, st, rad, out, npe, nro, n, K, noff, wrap, kw, beta);
 }
 
-// Calls launch<KP, V> for the first channel block of K real channels (KP =
-// K below 16, else 16) with V = 4 floats per lane when K is a multiple of
-// 4, else 2.
-template <int KP>
+// Calls launch<KP, V, MAXOFF> for the first channel block of K real channels
+// (KP = K below 16, else 16) with V = 4 floats per lane when K is a multiple
+// of 4, else 2.
+template <int KP, int MAXOFF>
 void dispatch_v(int K, const float* g, const float* c, const float* s,
                const float* r, float2* o, int npe, int nro, int n, int noff,
                int wrap, float kw, float beta, cudaStream_t strm) {
   if constexpr (KP % 4 == 0) {
     if (K % 4 == 0) {
-      launch<KP, 4>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
+      launch<KP, 4, MAXOFF>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
       return;
     }
   }
-  launch<KP, 2>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
+  launch<KP, 2, MAXOFF>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
+}
+
+// The channel-block switch for one neighbour capacity.
+template <int MAXOFF>
+void dispatch_k(int K, const float* g, const float* c, const float* s,
+               const float* r, float2* o, int npe, int nro, int n, int noff,
+               int wrap, float kw, float beta, cudaStream_t strm) {
+  switch (K < kMaxChannels ? K : kMaxChannels) {
+    case 2: dispatch_v<2, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 4: dispatch_v<4, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 6: dispatch_v<6, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 8: dispatch_v<8, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 10: dispatch_v<10, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 12: dispatch_v<12, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 14: dispatch_v<14, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    default: dispatch_v<16, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+  }
 }
 
 }  // namespace
@@ -203,15 +226,15 @@ extern "C" {
 
 // grid: (n, n, K) f32 planes, K = 2C even (channel 2c is coil c's real
 // part, 2c+1 its imaginary part); ct, st: (npe,) f32; rad: (nro,) f32
-// sample radii; out: (C, npe, nro) complex64.  npe*nro and n*n*K must fit
-// an int (the wrapper checks).  Returns cudaGetLastError() after the
+// sample radii; out: (C, npe, nro) complex64; noff = int(2 kw) + 1 in 1 to
+// 14 (kw < 7).  npe*nro and n*n*K must fit an int (the wrapper checks).  Returns cudaGetLastError() after the
 // launch (0 on success).
 int tron_degrid_radial2d_planes(const void* grid, const void* ct,
                                 const void* st, const void* rad, void* out,
                                 int npe, int nro, int n, int K, int noff,
                                 int wrap, float kw, float beta, void* stream) {
   if (K <= 0 || (K & 1) || n <= 0 || nro <= 0 || npe <= 0 || noff < 1 ||
-      noff > kMaxOff) {
+      noff > kWideOff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* g = static_cast<const float*>(grid);
@@ -220,15 +243,10 @@ int tron_degrid_radial2d_planes(const void* grid, const void* ct,
   const float* r = static_cast<const float*>(rad);
   float2* o = static_cast<float2*>(out);
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  switch (K < kMaxChannels ? K : kMaxChannels) {
-    case 2: dispatch_v<2>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 4: dispatch_v<4>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 6: dispatch_v<6>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 8: dispatch_v<8>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 10: dispatch_v<10>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 12: dispatch_v<12>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 14: dispatch_v<14>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    default: dispatch_v<16>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+  if (noff <= kNarrowOff) {
+    dispatch_k<kNarrowOff>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
+  } else {
+    dispatch_k<kWideOff>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,7 @@ from tron_tpu_torch.io.ra import (
     RaWriter,
     dtype_to_eltype,
     eltype_to_dtype,
+    ra_convert,
     ra_query,
     ra_read,
     ra_write,
@@ -17,6 +18,7 @@ __all__ = [
     "RaWriter",
     "dtype_to_eltype",
     "eltype_to_dtype",
+    "ra_convert",
     "ra_query",
     "ra_read",
     "ra_write",

@@ -83,6 +83,30 @@ def _decode_profile_window(out, npe, nc, nt, nro, pair, dtype):
     return arr
 
 
+def ra_read_profiles_stack(path, pe0: int, npe: int) -> np.ndarray:
+    """Profiles [pe0, pe0+npe) of a 3-D stack-of-stars .ra at every kz
+    encoding: complex64 (nc, nt, nro, npe, npe2), the windowed loader
+    behind the streamed `-3` recon.
+
+    npe2 is the slowest on-disk axis, so this is one contiguous region read
+    per kz encoding (npe2 seeks); complex, plain-float and fp16-pair files
+    all work (the decode of ``ra_read_profiles``)."""
+    hdr = _py.ra_query(path)
+    npe2 = radial_dims(hdr)[4]
+    stack = None
+    for pe2 in range(npe2):
+        out, nc, nt, nro, pair = _read_profile_window(path, hdr, pe0, npe, pe2)
+        plane = _decode_profile_window(out, npe, nc, nt, nro, pair, hdr.dtype)
+        if stack is None:
+            # preallocated: peak host memory is the window plus one plane.
+            # Fortran order is the disk's (kz slowest, coil fastest), so each
+            # plane, itself a transposed view of its region, lands as one
+            # contiguous copy
+            stack = np.empty(plane.shape + (npe2,), np.complex64, order="F")
+        stack[..., pe2] = plane
+    return stack
+
+
 def ra_write_region(path, byte_offset: int, buf: np.ndarray) -> None:
     """pwrite ``buf`` into the .ra data payload of ``path`` at
     ``byte_offset`` (the file must already carry its header, as

@@ -175,6 +175,15 @@ def ra_write(
     os.replace(tmp, path)
 
 
+def ra_convert(arr: np.ndarray, eltype: int, elbyte: int) -> np.ndarray:
+    """Convert an array to the numpy dtype of (eltype, elbyte).
+
+    The float16 path uses numpy's IEEE-754 half conversions (ties-to-even),
+    the algorithm the reference carries in `src/float16.cu:76-324`.
+    """
+    return np.asarray(arr).astype(eltype_to_dtype(eltype, elbyte))
+
+
 def pwrite_all(fd: int, buf: np.ndarray, pos: int) -> None:
     """``os.pwrite`` all of ``buf`` at byte ``pos`` of ``fd`` (one call may
     write short: Linux caps it at ~2 GiB)."""

@@ -23,11 +23,14 @@ import torch
 from tron_tpu_torch import _build
 from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_radial2d_plain
 from tron_tpu_torch.ops.degrid import lattice_radii
-from tron_tpu_torch.ops.grid_cuda import MATMUL_DTYPES
+from tron_tpu_torch.ops.grid_cuda import MATMUL_DTYPES, profiler_range
 
 LAUNCHES = 0
 
-MAX_OFF = 8  # neighbours per axis the kernel holds: int(2*kernwidth) + 1
+# Neighbours per axis the kernel holds, int(2*kernwidth) + 1: the gridding
+# kernels' range (kernwidth < grid_cuda.MAX_KERNWIDTH).  Up to 8 run the
+# narrow instantiation, 9 to 14 the wide one (csrc/degrid_radial2d.cu).
+MAX_OFF = 14
 _INT_MAX = 2**31 - 1
 
 
@@ -112,7 +115,7 @@ def _launch(gplanes, angles, nro, kernwidth, beta, wrap) -> torch.Tensor:
     st = torch.sin(angles)
     rad = lattice_radii(nro, n, gplanes.device)
     out = torch.empty((K // 2, npe, nro), dtype=torch.complex64, device=gplanes.device)
-    with torch.cuda.device(gplanes.device):
+    with torch.cuda.device(gplanes.device), profiler_range("degrid_radial2d"):
         code = built.lib.tron_degrid_radial2d_planes(
             gplanes.data_ptr(), ct.data_ptr(), st.data_ptr(), rad.data_ptr(),
             out.data_ptr(), npe, nro, n, K, int(2 * kernwidth) + 1, int(bool(wrap)),

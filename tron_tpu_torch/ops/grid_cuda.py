@@ -34,6 +34,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -71,6 +72,15 @@ def __getattr__(name):
 def reset_launches() -> None:
     for k in LAUNCH_COUNTS:
         LAUNCH_COUNTS[k] = 0
+
+
+def profiler_range(name: str):
+    """While a torch profiler records (``tron-torch --profile``), a range
+    that names the kernel a wrapper launches in the trace; otherwise
+    nothing, so the wrappers pay nothing for it."""
+    if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def _planes(ds: torch.Tensor) -> torch.Tensor:
@@ -213,7 +223,7 @@ def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> tor
         else:
             name, fn = "grid_radial2d", lib.tron_grid_radial2d_planes
     work = torch.empty(int(nbytes), dtype=torch.uint8, device=planes.device)
-    with torch.cuda.device(planes.device):
+    with torch.cuda.device(planes.device), profiler_range(name):
         code = fn(*args, *extra, work.data_ptr(), work.numel(),
                   torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check(lib, code, f"{name} kernel")

@@ -1,14 +1,19 @@
 """Reconstruction entry points (counterpart of `tron_tpu/recon.py`):
-sliding-window frame scheduling over radial data (adjoint, plain or CGNR)
-and the forward operator over image stacks.
+sliding-window frame scheduling over radial data (adjoint, plain or CGNR),
+the forward operator over image stacks, and the 3-D stack-of-stars (`-3`)
+recon, in memory and streamed.
 
 Frames run in order in a Python loop, each written into one preallocated
-output (the JAX package's ``lax.map`` / ``lax.scan``).  Features of the JAX
-recon that are still to port raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; none falls back silently.
+output (the JAX package's ``lax.map`` / ``lax.scan``).  The one feature of
+the JAX recon that is still to port (frame-sharded streaming, ``mesh``)
+raises ``NotImplementedError`` naming its ROADMAP item; nothing falls back
+silently.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,7 +31,7 @@ from tron_tpu_torch.nufft import (
     sdc_weights,
 )
 from tron_tpu_torch.ops import grid_cuda
-from tron_tpu_torch.ops.coil import coil_combine_sos
+from tron_tpu_torch.ops.coil import coil_combine_sos, coil_combine_walsh, coil_compress
 from tron_tpu_torch.solver import cgnr_radial2d
 from tron_tpu_torch.trajectory import spoke_angles
 
@@ -35,28 +40,35 @@ def _unported(feature: str, item: str):
     raise NotImplementedError(f"{feature} is not ported yet (ROADMAP {item})")
 
 
-def _check_ported(cfg: ReconConfig) -> None:
-    if cfg.coil_combine == "walsh":
-        _unported("coil_combine='walsh'", "A16")
-
-
 def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
     """Device images -> host complex64.  ``half`` casts to float16 re/im
     planes on the device before the transfer (2x fewer bytes) and
     recombines on the host, value-identical to a later host-side --half
     store."""
     if half:
-        re, im = torch.stack([dev.real, dev.imag]).to(torch.float16).cpu().numpy()
-        return (re.astype(np.float32) + 1j * im.astype(np.float32)).astype(np.complex64)
+        return _from_half_planes(_to_half_planes(dev).cpu().numpy())
     return dev.cpu().numpy()
 
 
+def _to_half_planes(dev: torch.Tensor) -> torch.Tensor:
+    """Complex images -> float16 re/im planes on a leading axis of 2."""
+    return torch.stack([dev.real, dev.imag]).to(torch.float16)
+
+
+def _from_half_planes(planes: np.ndarray) -> np.ndarray:
+    return (planes[0].astype(np.float32) + 1j * planes[1].astype(np.float32)).astype(
+        np.complex64
+    )
+
+
 def _combine(coilimg: torch.Tensor, cfg: ReconConfig) -> torch.Tensor:
+    if cfg.coil_combine == "walsh":
+        return coil_combine_walsh(coilimg, cfg.walsh_npatch)
     if cfg.coil_combine == "sos":
         return coil_combine_sos(coilimg, axis=0)
     if cfg.coil_combine == "none":
         return coilimg
-    return _unported(f"coil_combine={cfg.coil_combine!r}", "A16")
+    raise ValueError(f"coil_combine must be 'sos', 'walsh' or 'none', got {cfg.coil_combine!r}")
 
 
 def _map_frames(one, nz: int) -> torch.Tensor:
@@ -72,7 +84,6 @@ def _map_frames(one, nz: int) -> torch.Tensor:
 def reconstruct_frame(data_window: torch.Tensor, skip, cfg: ReconConfig) -> torch.Tensor:
     """One frame: (nc, npe1work, nro) -> combined image (n, n).  ``skip`` is
     the frame's global profile offset (skip_angles + z*prof_slide)."""
-    _check_ported(cfg)
     npe = data_window.shape[-2]
     angles = spoke_angles(npe, cfg.scheme_for("adjoint"), skip, device=data_window.device)
     if cfg.niter > 0:
@@ -92,7 +103,6 @@ def recon_frames(
 ) -> torch.Tensor:
     """All frames on data's device. data: (nc, npe1, nro) -> (nz, n, n).
     ``skip0`` is the global profile offset of data[..., 0, :]."""
-    _check_ported(cfg)
     nro = data.shape[-1]
     if cfg.niter == 0 and planes_path_ok(cfg):
         # hoist the once-per-acquisition half of the gridder's sample prep
@@ -151,7 +161,6 @@ def recon_frames_incremental(
         kgrid[z+1] = kgrid[z] - grid(spokes[z*s : z*s+s])
                               + grid(spokes[z*s+w : z*s+w+s])
     """
-    _check_ported(cfg)
     nro = data.shape[-1]
     n = nro // 2
     nxos = int(n * cfg.gridos)
@@ -247,16 +256,16 @@ def recon_radial2d(
     npe1, nro) complex64 with nro = gridos*nx and npe1 = u*nro, every frame
     on the one angle set that starts at skip_angles.
 
+    With ``cfg.koosh`` (`-3`) the trailing axis is the kz phase encoding of
+    a stack of stars; see ``_recon_stack_of_stars`` for its shapes.
+
     ``half_readback`` casts adjoint images to float16 on the device before
     the transfer."""
     if cfg.koosh:
-        _unported("-3 stack-of-stars (koosh)", "A15")
+        return _recon_stack_of_stars(indata, cfg, half_readback, device)
     if not cfg.adjoint:
         return _forward_radial2d(indata, cfg, device)
-    _check_ported(cfg)
     nc, nt, nro, npe1 = indata.shape[:4]
-    if 0 < cfg.coil_compress < nc:
-        _unported("coil_compress", "A16")
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     # ops layout: channels = nt*nc, spokes, readout
     dnp = np.ascontiguousarray(
@@ -264,6 +273,12 @@ def recon_radial2d(
         dtype=np.complex64,
     ).reshape(nt * nc, npe1, nro)
     d = torch.from_numpy(dnp).to(device)
+    if 0 < cfg.coil_compress < nc:
+        # per repetition, from that repetition's own samples
+        dc = d.reshape(nt, nc, npe1, nro)
+        d = torch.stack([coil_compress(dc[t], cfg.coil_compress) for t in range(nt)])
+        nc = cfg.coil_compress
+        d = d.reshape(nt * nc, npe1, nro)
     frames_fn = (
         recon_frames_incremental
         if cfg.incremental and incremental_applicable(cfg, work, slide, nz)
@@ -312,10 +327,9 @@ class _Uploader:
 
     def __init__(self, device: torch.device, shape: tuple[int, ...]):
         self.device = device
+        self.shape = shape
         if device.type == "cuda":
-            self.pinned = [
-                torch.empty(shape, dtype=torch.complex64, pin_memory=True) for _ in range(2)
-            ]
+            self.pinned = [None, None]  # allocated at first use: one block needs one
             self.copied = [None, None]
             self.stream = torch.cuda.Stream(device)
 
@@ -324,6 +338,8 @@ class _Uploader:
         if self.device.type != "cuda":
             return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.complex64)), None
         k = i % 2
+        if self.pinned[k] is None:
+            self.pinned[k] = torch.empty(self.shape, dtype=torch.complex64, pin_memory=True)
         if self.copied[k] is not None:
             self.copied[k].synchronize()
         self.pinned[k].numpy()[...] = arr
@@ -349,6 +365,45 @@ def _download(dev: torch.Tensor, ready, stream) -> np.ndarray:
         done.record(stream)
     done.synchronize()
     return host.numpy()
+
+
+def _block_starts(total: int, block: int) -> list[int]:
+    """Starts of blocks of one size covering [0, total): the tail block
+    realigns to total - block, so it may overlap its predecessor."""
+    return [min(b0, total - block) for b0 in range(0, total, block)]
+
+
+class _BlockReader:
+    """Reads finished device blocks back on a thread, in order, one behind
+    the compute: block b is copied to the host (``_download``: a copy stream
+    that waits for the block's event, pinned memory) and handed to
+    ``drain(*key, host_block)`` while the card computes block b+1."""
+
+    def __init__(self, device: torch.device, drain):
+        self.device = device
+        self.drain = drain
+        self.d2h = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.pool = ThreadPoolExecutor(max_workers=1)
+        self.pending = []
+
+    def submit(self, key: tuple, dev: torch.Tensor) -> None:
+        """Queue the block computed last on the current stream."""
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        self.pending.append(
+            self.pool.submit(lambda: self.drain(*key, _download(dev, ready, self.d2h)))
+        )
+        while len(self.pending) > 1:
+            self.pending.pop(0).result()
+
+    def close(self) -> None:
+        try:
+            while self.pending:
+                self.pending.pop(0).result()
+        finally:
+            self.pool.shutdown()
 
 
 def recon_radial2d_streaming(
@@ -396,8 +451,6 @@ def recon_radial2d_streaming(
     complex64, or (2, nz, nt, [nc,] n, n) float16 when half.  ``mesh``
     (frame-sharded streaming) is not ported yet.
     """
-    from concurrent.futures import ThreadPoolExecutor
-
     from tron_tpu_torch.device import resolve_device
     from tron_tpu_torch.io import ra_query
     from tron_tpu_torch.io.native import ra_read_profiles, radial_dims
@@ -411,7 +464,6 @@ def recon_radial2d_streaming(
         raise ValueError("streaming recon supports npe2 == 1 (use -3 for stacks)")
     if not cfg.adjoint or cfg.koosh:
         raise ValueError("streaming recon is adjoint (-a), non-koosh only")
-    _check_ported(cfg)
     basis = None
     if 0 < cfg.coil_compress < nc:
         # a per-block basis would change the virtual coils across blocks, so
@@ -420,8 +472,7 @@ def recon_radial2d_streaming(
     nv = nc if basis is None else basis.shape[-1]
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     bf = min(batch_frames, nz)
-    # the tail block realigns to nz - bf (every block has one shape)
-    z0s = [min(z0, nz - bf) for z0 in range(0, nz, bf)]
+    z0s = _block_starts(nz, bf)  # every block has one shape
     npe_blk = work + (bf - 1) * slide
     frames_fn = (
         recon_frames_incremental
@@ -429,7 +480,6 @@ def recon_radial2d_streaming(
         else recon_frames
     )
     upload = _Uploader(device, (nt, nv, npe_blk, nro))
-    d2h = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def load(i):
         """Disk window -> device (loader thread)."""
@@ -453,9 +503,8 @@ def recon_radial2d_streaming(
 
     outs = None if writer is not None else [None] * nz
 
-    def sink(z0, dev, ready):
-        """Device block -> host -> writer or outs (reader thread, block order)."""
-        blk = _download(dev, ready, d2h)
+    def sink(z0, blk):
+        """Host block -> writer or outs (reader thread, block order)."""
         if writer is not None:
             writer(z0, blk)
             return
@@ -463,29 +512,24 @@ def recon_radial2d_streaming(
             # the frame axis is axis 0 (plain) or axis 1 (half's leading planes)
             outs[z0 + i] = blk[:, i].copy() if half else blk[i].copy()
 
-    with ThreadPoolExecutor(max_workers=1) as loader, ThreadPoolExecutor(max_workers=1) as reader:
-        fut = loader.submit(load, 0)
-        pending = []
-        for i, z0 in enumerate(z0s):
-            d, copied, pe0 = fut.result()
-            if i + 1 < len(z0s):
-                fut = loader.submit(load, i + 1)
-            ready = None
-            if copied is not None:
-                compute = torch.cuda.current_stream(device)
-                compute.wait_event(copied)
-                d.record_stream(compute)  # d was allocated on the copy stream
-            out = recon_block(d, pe0)
-            del d
-            if device.type == "cuda":
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(device))
-            pending.append(reader.submit(sink, z0, out, ready))
-            del out
-            while len(pending) > 1:
-                pending.pop(0).result()
-        while pending:
-            pending.pop(0).result()
+    reader = _BlockReader(device, sink)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as loader:
+            fut = loader.submit(load, 0)
+            for i, z0 in enumerate(z0s):
+                d, copied, pe0 = fut.result()
+                if i + 1 < len(z0s):
+                    fut = loader.submit(load, i + 1)
+                if copied is not None:
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_event(copied)
+                    d.record_stream(compute)  # d was allocated on the copy stream
+                out = recon_block(d, pe0)
+                del d
+                reader.submit((z0,), out)
+                del out
+    finally:
+        reader.close()
     if writer is not None:
         return None
     return np.stack(outs, axis=1 if half else 0)
@@ -505,3 +549,235 @@ def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarra
     angles = spoke_angles(npe1, cfg.scheme_for("forward"), cfg.skip_angles, device=d.device)
     out = _map_frames(lambda z: nufft_forward(d[z], angles, cfg, nro=nro), nz)
     return out.cpu().numpy().reshape(nz, nc, nt, npe1, nro)
+
+
+# -- 3-D stack of stars (`-3`) -----------------------------------------------
+
+KZ_BLOCK = 8  # kz slices reconstructed per readback
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> complex64 device tensor of the same shape, with no
+    host-side relayout when the array is contiguous in either order (a .ra
+    payload read by ``ra_read`` is Fortran-ordered: it goes up as its
+    transpose and is viewed back on the device)."""
+    a = np.asarray(arr)
+    if a.dtype != np.complex64:
+        a = a.astype(np.complex64)
+    if a.flags.f_contiguous and not a.flags.c_contiguous:
+        return torch.from_numpy(a.T).to(device).permute(*reversed(range(a.ndim)))
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _recon_stack_of_stars(
+    indata: np.ndarray, cfg: ReconConfig, half_readback: bool, device
+) -> np.ndarray:
+    """3-D stack of stars (`-3`): 2-D radial in plane, Cartesian phase
+    encoding along kz.
+
+    The reference's -3 flag only relabels dimensions (`src/tron.cu:922-927`);
+    here, as in the JAX package, kz (npe2) is a centred Cartesian FFT axis
+    decoupled from the in-plane NUFFT: the adjoint is an inverse FFT along
+    kz, then a 2-D gridding recon per slice; the forward a 2-D degridding
+    per slice, then an FFT along kz.  One upload per direction, the kz
+    transform on the device.
+
+    adjoint: indata (nc, nt, nro, npe1, npe2) -> (npe2*nzi, nt, [nc,] n, n),
+    slice-major (frame b*nzi + z is in-plane frame z of slice b); in-plane
+    frames do not overlap (prof_slide is ignored).
+    forward: indata (nc, nt, nx, ny, nz) -> (nz, nc, nt, npe1, nro)."""
+    cfg2 = dataclasses.replace(cfg, koosh=False, prof_slide=0)
+    if cfg.adjoint:
+        if np.ndim(indata) != 5:
+            raise ValueError(f"-3 expects (nc, nt, nro, npe1, npe2), got shape {np.shape(indata)}")
+        nro, npe1 = indata.shape[2:4]
+        work, slide, nzi = cfg2.frame_geometry(nro, npe1)
+        return _koosh_adjoint_pipelined(
+            _upload(indata, device), cfg2, work, slide, nzi, half=half_readback
+        )
+    nc, nt, nx, ny, nz = indata.shape[:5]
+    nro = int(cfg.gridos * nx)
+    npe1 = int(cfg.data_undersamp * nro)
+    # (nc, nt, nx, ny, nz) -> (nz, nc*nt, ny, nx), relaid on the device
+    imgs = _upload(indata, device).permute(4, 0, 1, 3, 2).reshape(nz, nc * nt, ny, nx)
+    out = _koosh_forward_device(imgs, cfg2, npe1, nro)
+    return out.cpu().numpy().reshape(nz, nc, nt, npe1, nro)
+
+
+def _koosh_kz_ifft(d5: torch.Tensor) -> torch.Tensor:
+    """Centred, unnormalised inverse FFT along the kz phase axis.  d5: (nc,
+    nt, nro, npe, npe2) in any strides -> (npe2, nt, nc, npe, nro)
+    contiguous, so that a slice and repetition is one contiguous (nc, npe,
+    nro) block for the frame machinery."""
+    x = d5.permute(1, 0, 3, 2, 4).contiguous()     # kz fastest for the FFT
+    x = torch.fft.fftshift(
+        torch.fft.ifft(torch.fft.ifftshift(x, dim=-1), dim=-1, norm="forward"), dim=-1
+    )
+    return x.permute(4, 0, 1, 2, 3).contiguous()
+
+
+def _koosh_slice_block(
+    sl: torch.Tensor, b0: int, nb: int, cfg2: ReconConfig, work: int, slide: int, nzi: int,
+    skip0: int = 0, half: bool = False,
+) -> torch.Tensor:
+    """kz slices [b0, b0+nb) of sl (npe2, nt, nc, npe, nro) -> images (nb,
+    nzi, nt, [nc,] n, n) on the device: ``recon_frames`` per slice and
+    repetition.  ``skip0`` is the global profile offset of sl[..., 0, :]:
+    the streamed recon feeds profile windows through here.  ``half``
+    returns float16 re/im planes on a leading axis of 2 (a readback of half
+    the bytes, exact under a later --half store)."""
+    nt = sl.shape[1]
+    out = None
+    for i in range(nb):
+        for t in range(nt):
+            img = recon_frames(sl[b0 + i, t], cfg2, work, slide, nzi, skip0)
+            if out is None:
+                out = img.new_empty((nb, nzi, nt) + tuple(img.shape[1:]))
+            out[i, :, t] = img
+    return _to_half_planes(out) if half else out
+
+
+def _koosh_adjoint_pipelined(
+    d5: torch.Tensor, cfg2: ReconConfig, work: int, slide: int, nzi: int,
+    half: bool = False, kz_block: int = KZ_BLOCK,
+) -> np.ndarray:
+    """Host side of the -3 adjoint: the kz inverse FFT on the device, then
+    blocks of ``kz_block`` kz slices reconstructed and read back one behind
+    the compute (the reference's per-frame async D2H overlap,
+    `src/tron.cu:767-781`).  d5: (nc, nt, nro, npe1, npe2) on the device ->
+    (npe2*nzi, nt, [nc,] n, n) host array.  ``half``: float16 readback
+    (exact under a later --half store)."""
+    sl = _koosh_kz_ifft(d5)
+    del d5
+    npe2 = sl.shape[0]
+    nb = min(npe2, kz_block)
+    out = None
+
+    def drain(b0, blk):                    # (nb, nzi, nt, [nc,] n, n)
+        nonlocal out
+        if half:
+            blk = _from_half_planes(blk)
+        blk = blk.reshape((nb * nzi,) + blk.shape[2:])
+        if out is None:
+            out = np.empty((npe2 * nzi,) + blk.shape[1:], blk.dtype)
+        out[b0 * nzi : (b0 + nb) * nzi] = blk
+
+    reader = _BlockReader(sl.device, drain)
+    try:
+        for b0 in _block_starts(npe2, nb):
+            reader.submit((b0,), _koosh_slice_block(sl, b0, nb, cfg2, work, slide, nzi, half=half))
+    finally:
+        reader.close()
+    return out
+
+
+def recon_koosh_streaming(
+    path,
+    cfg: ReconConfig,
+    batch_frames: int = 8,
+    writer=None,
+    half: bool = False,
+    *,
+    device: torch.device | str | None = None,
+    kz_block: int = KZ_BLOCK,
+) -> np.ndarray | None:
+    """Streamed 3-D stack-of-stars (`-3 --stream`) adjoint on ``device``
+    (default: the card, ``resolve_device()``).
+
+    The kz inverse FFT mixes every npe2 encoding of a sample, so `-3` cannot
+    stream over kz; it is pointwise over profiles, so streaming over npe1
+    is exact: each disk block is the profile window of ``batch_frames``
+    in-plane frames at all npe2 encodings
+    (``io.native.ra_read_profiles_stack``, one contiguous region read per kz
+    encoding), uploaded from pinned memory on a copy stream, transformed
+    along kz on the device, then reconstructed in blocks of ``kz_block``
+    slices like the in-memory path, with the window's global profile offset
+    as skip0.  The host holds about two profile windows, not the
+    acquisition.
+
+    ``writer(z0, blk)`` is called with contiguous runs of output frames:
+    frames are slice-major ((b, z) -> b*nzi + z, as the in-memory output and
+    the .ra frame axis), so each (slice, frame window) lands as one region;
+    tail blocks realign on both axes and may rewrite frames.  Without
+    ``writer``, returns (npe2*nzi, nt, [nc,] n, n) complex64, comparable bit
+    for bit with the in-memory `-3` output.
+
+    ``half``: float16 readback from the card (exact under a later --half
+    store); blocks reach the writer as complex64 either way."""
+    from tron_tpu_torch.device import resolve_device
+    from tron_tpu_torch.io import ra_query
+    from tron_tpu_torch.io.native import ra_read_profiles_stack, radial_dims
+
+    device = resolve_device() if device is None else torch.device(device)
+    hdr = ra_query(path)
+    nc, nt, nro, npe1, npe2, _pair = radial_dims(hdr)
+    if not cfg.adjoint or not cfg.koosh:
+        raise ValueError("recon_koosh_streaming runs the -3 adjoint only")
+    cfg2 = dataclasses.replace(cfg, koosh=False, prof_slide=0)
+    work, slide, nzi = cfg2.frame_geometry(nro, npe1)
+    bf = min(batch_frames, nzi)
+    z0s = _block_starts(nzi, bf)
+    nb = min(npe2, kz_block)
+    b0s = _block_starts(npe2, nb)
+    npe_blk = work + (bf - 1) * slide
+    # the window goes up in disk order, kz slowest (the transpose of the
+    # reader's Fortran-ordered array): no host-side relayout
+    upload = _Uploader(device, (npe2, npe_blk, nro, nt, nc))
+
+    def load(i):
+        """Disk window -> device (loader thread)."""
+        pe0 = z0s[i] * slide
+        blk = ra_read_profiles_stack(path, pe0, npe_blk)   # (nc, nt, nro, npe, npe2)
+        return (*upload(i, blk.T), pe0)
+
+    full = None
+
+    def drain(z0, b0, blk):                # (nb, bf, nt, [nc,] n, n)
+        nonlocal full
+        if half:
+            blk = _from_half_planes(blk)
+        if writer is not None:
+            for i in range(nb):
+                writer((b0 + i) * nzi + z0, blk[i])
+            return
+        if full is None:
+            full = np.empty((npe2 * nzi,) + blk.shape[2:], blk.dtype)
+        for i in range(nb):
+            full[(b0 + i) * nzi + z0 : (b0 + i) * nzi + z0 + bf] = blk[i]
+
+    reader = _BlockReader(device, drain)
+    try:
+        with ThreadPoolExecutor(max_workers=1) as loader:
+            fut = loader.submit(load, 0)
+            for i, z0 in enumerate(z0s):
+                dT, copied, pe0 = fut.result()
+                if i + 1 < len(z0s):
+                    fut = loader.submit(load, i + 1)
+                if copied is not None:
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_event(copied)
+                    dT.record_stream(compute)  # dT was allocated on the copy stream
+                sl = _koosh_kz_ifft(dT.permute(4, 3, 2, 1, 0))
+                del dT
+                for b0 in b0s:
+                    reader.submit(
+                        (z0, b0),
+                        _koosh_slice_block(sl, b0, nb, cfg2, work, slide, bf, pe0, half=half),
+                    )
+    finally:
+        reader.close()
+    return full if writer is None else None
+
+
+def _koosh_forward_device(
+    stack: torch.Tensor, cfg2: ReconConfig, npe1: int, nro: int
+) -> torch.Tensor:
+    """Device side of the -3 forward: per-slice degridding, every coil and
+    repetition a channel of one ``nufft_forward`` call, then the centred,
+    unnormalised FFT along kz.  stack: (nz, nc*nt, ny, nx) -> (npe2 = nz,
+    nc*nt, npe1, nro)."""
+    angles = spoke_angles(npe1, cfg2.scheme_for("forward"), cfg2.skip_angles, device=stack.device)
+    data = _map_frames(lambda z: nufft_forward(stack[z], angles, cfg2, nro=nro), stack.shape[0])
+    return torch.fft.fftshift(
+        torch.fft.fft(torch.fft.ifftshift(data, dim=0), dim=0), dim=0
+    )
