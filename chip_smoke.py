@@ -62,6 +62,23 @@ Phases, one line each (any failure raises and exits non-zero):
              tools.make_phantom, -k 4 forward and -i 2, --backend pallas,
              --precision accurate, --profile DIR, -k 7 (exit 2), and the
              golden-angle fixture of tools.make_goldenangle at nxos 128
+ 24 shard1   the sharded scheduler (parallel.recon_frames_sharded) at a world
+             of 1 on NCCL, a 1 x 1 mesh: the whole-body series, direct and
+             incremental, bitwise against recon_frames and
+             recon_frames_incremental, ms per frame side by side, launch counts
+ 25 shard2   two ranks that share the card (gloo on CUDA tensors; with two
+             cards also NCCL, one card each), started through parallel.launch,
+             whole-body width: recon_frames_sharded on 64 frames over meshes
+             (2, 1) and (1, 2), sum of squares, Walsh (on the 6-coil phantom)
+             and coil images (16 frames), direct and incremental;
+             recon_window_spoke_sharded on a 2-rank spoke mesh, adjoint, -i 10
+             and -i 10 --toeplitz; recon_forward_sharded on 32 slices, 2-D and
+             -3; recon_stack_of_stars_sharded on the stack of phase 20; each
+             against the unsharded recon, repeats bitwise, every rank holding
+             the whole result, with the ranks' launch counts
+ 26 clishard tron-torch --shard, --shard-spokes and --stream --shard on the
+             1479-spoke cut, in this process and as two ranks on the card, each
+             against the unsharded file
 Then the kernel table as one JSON line (each kernel's launches on its main
 path, error, ms, the passes' device ms, plain ms, bound and library call), the
 nvidia-smi line, and
@@ -235,6 +252,16 @@ def main() -> int:
         ("nxos512 C6 npe204", 512, 6, 204, 19000, False),
         ("nxos512 C6 delta42 signed", 512, 6, 42, 19950, True),
         ("nxos128 C10 npe1500 (2 channel blocks, 2 spoke chunks)", 128, 10, 1500, 0, False),
+        # the shapes a sharded recon gives the kernel: a coil shard of 2 (3
+        # coils, 6 planes) and of 6 (1 coil, 2 planes), a spoke shard of 2 and
+        # of 4 (102 and 51 spokes), both at once, a coil shard's 42-spoke delta
+        ("nxos512 C3 npe204 (coil shard of 2)", 512, 3, 204, 19000, False),
+        ("nxos512 C1 npe204 (coil shard of 6)", 512, 1, 204, 19000, False),
+        ("nxos512 C6 npe102 (spoke shard of 2)", 512, 6, 102, 19000, False),
+        ("nxos512 C6 npe51 (spoke shard of 4)", 512, 6, 51, 19000, False),
+        ("nxos512 C3 npe102 (spoke x coil shard)", 512, 3, 102, 19102, False),
+        ("nxos512 C3 delta42 signed (coil shard)", 512, 3, 42, 19950, True),
+        ("nxos512 C1 npe51 (spoke shard of 4, coil shard of 6)", 512, 1, 51, 19153, False),
     ]
     err512 = err128 = None
     for name, nxos, C, npe, skip, signed in cases:
@@ -415,6 +442,12 @@ def main() -> int:
         ("gridos1.5 nxos384 nro512 C2", 384, 2, 24, 512, 1.5),
         ("gridos2.5 nxos640 nro512 C2", 640, 2, 24, 512, 2.5),
         ("odd nro255 nxos256 C2", 256, 2, 12, 255, 2.0),
+        # a sharded recon's shapes: coil shards of 2 and of 6, spoke shards of 2 and of 4
+        ("nxos512 C3 npe204 (coil shard of 2)", 512, 3, 204, 512, 2.0),
+        ("nxos512 C1 npe204 (coil shard of 6)", 512, 1, 204, 512, 2.0),
+        ("nxos512 C6 npe102 (spoke shard of 2)", 512, 6, 102, 512, 2.0),
+        ("nxos512 C6 npe51 (spoke shard of 4)", 512, 6, 51, 512, 2.0),
+        ("nxos512 C3 npe102 (spoke x coil shard)", 512, 3, 102, 512, 2.0),
     ]
     derr512 = None
     for name, n, C, npe, nro, gos in dcases:
@@ -741,6 +774,9 @@ def main() -> int:
         ("nxos384 C3 npe30 golden, lattice nro 512 (gridos 1.5)", 384, 3, 30, "golden", 512),
         ("nxos512 C6 npe204 golden", 512, 6, 204, "golden", None),
         ("nxos512 C6 npe204 golden, lattice nro 512", 512, 6, 204, "golden", 512),
+        ("nxos512 C3 npe204 golden (coil shard of 2)", 512, 3, 204, "golden", None),
+        ("nxos512 C1 npe102 golden (coil shard of 6, spoke shard of 2)", 512, 1, 102, "golden", None),
+        ("nxos512 C3 npe51 golden, lattice nro 512 (sharded CGNR's adjoint)", 512, 3, 51, "golden", 512),
         ("nxos640 C2 npe24 linear_half, lattice nro 512 (gridos 2.5)", 640, 2, 24, "linear_half", 512),
         ("nxos100 C3 npe17 golden (partial edge tiles)", 100, 3, 17, "golden", None),
         ("nxos128 C10 npe1500 golden (2 channel blocks, 6 spoke chunks)", 128, 10, 1500, "golden", None),
@@ -1171,7 +1207,7 @@ def main() -> int:
                 f"nrmse {e:.3e}, bitwise equal {same} on {card}")
             require(e <= 1e-5, f"-3 {name}: nrmse {e:.3e} vs {what}")
             os.remove(fout)
-    del kT, kdata, kouts, kout
+    del kouts  # the stack and its images stay for phase 25
 
     # -- 22 walsh and in-memory coil compression --------------------------------
     NW = 64
@@ -1310,7 +1346,217 @@ def main() -> int:
         log("cli3", f"make_goldenangle --nc 4 --nro 128 --npe 96 -> tron-torch -a -G -u 0.5 -d 21: out "
             f"dims {ga.shape}, {b2_launches} launches at nxos 128, correlation with the phantom {cga:.4f}")
         require(ga.shape == (1, 1, 64, 64, 2) and bool(np.isfinite(ga).all()), "cli3 golden-angle output")
-    log("paths", f"launches of phases 20-23 by kernel: {new_counts}; at nxos 128 (B2's contract): "
+    # -- 24 shard1: the sharded scheduler at a world of 1, on NCCL -------------
+    import torch.distributed as dist
+
+    from tron_tpu_torch.parallel import distributed, launch, make_mesh, recon_frames_sharded
+
+    ncards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(device=dev, init_method=f"file://{tmp}/store", rank=0, world_size=1)
+        ones = torch.ones(4, device=dev)
+        dist.all_reduce(ones)
+        require(dist.get_backend() == "nccl" and bool((ones == 1).all()),
+                f"a world of 1 on {dist.get_backend()}: all_reduce gave {ones.tolist()}")
+        mesh1 = make_mesh(1, 1, device=dev)
+        require(mesh1.shape == {"frame": 1, "coil": 1} and mesh1.device == dev, f"mesh {mesh1}")
+        for mode, fn in (("direct", recon_frames), ("incremental", recon_frames_incremental)):
+            c = dataclasses.replace(cfg, incremental=mode == "incremental")
+            fresh_counts()
+            ref = fn(dfull, c, work, SLIDE, NZ)
+            plain_counts = {k: v for k, v in counts_now().items() if v}
+            fresh_counts()
+            got = recon_frames_sharded(dfull, c, mesh1, work, SLIDE, NZ)
+            counted({"grid_radial2d": NZ}, f"shard1 {mode}")
+            require(plain_counts == {"grid_radial2d": NZ}, f"shard1 {mode}: unsharded {plain_counts}")
+            same = torch.equal(got, ref)
+            e = nrmse(got, ref)
+            del got, ref
+            unsharded = lambda: fn(dfull, c, work, SLIDE, NZ)  # noqa: E731
+            sharded = lambda: recon_frames_sharded(dfull, c, mesh1, work, SLIDE, NZ)  # noqa: E731
+            t = [timed(unsharded, 2), timed(sharded, 2), timed(sharded, 2), timed(unsharded, 2)]
+            log("shard1", f"{mode}, world 1 on nccl, 1 card, mesh 1 x 1, {NZ} whole-body frames: "
+                f"recon_frames_sharded vs {fn.__name__}: nrmse {e:.3e}, bitwise equal {same}, "
+                f"{NZ} launches of grid_radial2d each; ms per frame sharded "
+                f"{1e3 * (t[1] + t[2]) / 2 / NZ:.4f}, unsharded {1e3 * (t[0] + t[3]) / 2 / NZ:.4f} "
+                f"(unsharded, sharded, sharded, unsharded: {[round(1e3 * x / NZ, 4) for x in t]}) "
+                f"on {card}")
+            require(e <= 1e-6, f"shard1 {mode}: nrmse {e:.3e} vs the unsharded scheduler")
+        distributed.shutdown()
+
+    # -- 25 shard2: two ranks on the card --------------------------------------
+    NS, NN = 64, 16                    # frames; frames of the coil-image ('none') calls
+    host64 = np.ascontiguousarray(host[:, : work + (NS - 1) * SLIDE])
+    host16 = np.ascontiguousarray(host[:, : work + (NN - 1) * SLIDE])
+    # Walsh wants coil images with a dominant eigenvector: the phantom's
+    pang = spoke_angles(work + (NS - 1) * SLIDE, "golden", 0, device=dev)
+    ph64 = nufft_forward(pimg, pang, scfg).cpu().numpy()
+    window = np.ascontiguousarray(host[:, :work])
+    icfg = dataclasses.replace(cfg, incremental=True)
+    spoke_cfgs = {"adjoint": cfg, f"-i {NITER}": ccfg, f"-i {NITER} --toeplitz": tcfg}
+
+    def dev_t(a):
+        return torch.from_numpy(a).to(dev)
+
+    # the unsharded recons, here in the parent
+    refs = {
+        "sos": outs["direct"][:NS],
+        "walsh": recon_frames(dev_t(ph64), wcfg, work, SLIDE, NS).cpu().numpy(),
+        "none": recon_frames(dev_t(host16), ncfg, work, SLIDE, NN).cpu().numpy(),
+        "forward": recon_radial2d(fimgs, fcfg, device=dev),
+        "forward -3": recon_radial2d(kimgs, kfcfg, device=dev),
+        "-3": kout,
+    }
+    for name, c in spoke_cfgs.items():
+        refs[f"spoke {name}"] = recon_mod.reconstruct_frame(dev_t(window), 0, c).cpu().numpy()
+
+    # (label, call, reference, limit, worst frame?, launches per rank: grid, degrid)
+    plan = []
+
+    def frames_call(shape, label, c, data, nfr, ref, tol):
+        per = nfr // shape["frame"]
+        plan.append((f"mesh {shape['frame']} x {shape['coil']} {label}",
+                     dict(entry="recon_frames_sharded", mesh=shape, cfg=c,
+                          args=[data, work, SLIDE, nfr, 0]),
+                     ref, tol, c.incremental, (per, 0)))
+
+    for shape, tol in (({"frame": 2, "coil": 1}, 1e-6), ({"frame": 1, "coil": 2}, 1e-5)):
+        frames_call(shape, "sos direct", cfg, host64, NS, refs["sos"], tol)
+        frames_call(shape, "sos incremental", icfg, host64, NS, refs["sos"], INC_TOL)
+        frames_call(shape, "walsh direct", wcfg, ph64, NS, refs["walsh"], tol)
+        frames_call(shape, "walsh incremental", dataclasses.replace(wcfg, incremental=True), ph64,
+                    NS, refs["walsh"], INC_TOL)
+        frames_call(shape, "none direct", ncfg, host16, NN, refs["none"], tol)
+        frames_call(shape, "none incremental", dataclasses.replace(ncfg, incremental=True), host16,
+                    NN, refs["none"], INC_TOL)
+    for name, c in spoke_cfgs.items():
+        n_grid = 1 if c.niter == 0 else 2 if c.toeplitz else NITER + 1
+        plan.append((f"spoke mesh 2, {name}",
+                     dict(entry="recon_window_spoke_sharded", mesh={"spoke": 2}, cfg=c,
+                          args=[window, 0]),
+                     refs[f"spoke {name}"], KERNEL_TOL if c.niter == 0 else CG_TOL, False,
+                     (n_grid, 0 if c.niter == 0 or c.toeplitz else NITER)))
+    two = {"frame": 2, "coil": 1}
+    plan.append(("mesh 2 x 1 forward, 32 slices",
+                 dict(entry="recon_forward_sharded", mesh=two, cfg=fcfg, args=[fimgs]),
+                 refs["forward"], 1e-6, False, (0, NF // 2)))
+    plan.append(("mesh 2 x 1 forward -3, 32 slices",
+                 dict(entry="recon_forward_sharded", mesh=two, cfg=kfcfg, args=[kimgs]),
+                 refs["forward -3"], 1e-6, False, (0, NPE2 // 2)))
+    plan.append(("mesh 2 x 1 -3 adjoint, 32 kz x 4 frames",
+                 dict(entry="recon_stack_of_stars_sharded", mesh=two, cfg=kcfg, args=[kdata]),
+                 refs["-3"], 1e-6, False, (NPE2 // 2 * KNZI, 0)))
+    # repeats, to be bitwise equal to their first run: a coil-sharded recon
+    # (one all_reduce per frame) and the spoke-sharded adjoint
+    repeats = {len(plan): 6, len(plan) + 1: 12}
+    plan.append(plan[6])
+    plan.append(plan[12])
+    want_launch = {"grid_radial2d": sum(p[5][0] for p in plan), "grid_radial2d_batched": 0,
+                   "grid_seg_radial2d": 0, "degrid_radial2d": sum(p[5][1] for p in plan)}
+
+    def shard2(cards: int):
+        t0 = time.perf_counter()
+        res = launch.start_ranks("tron_tpu_torch.parallel.launch:run_calls", 2,
+                                 {"calls": [p[1] for p in plan], "digests": True},
+                                 cards=cards, timeout=600.0)
+        wall = time.perf_counter() - t0
+        backend = "gloo" if cards == 1 else "nccl"
+        where = f"2 ranks on {backend}, {cards} card{'s' if cards > 1 else ''} ({[r.device for r in res]})"
+        for r in res:
+            require(r.backend == backend and r.imported == (), f"shard2: {r.backend} {r.imported}")
+            require(r.launches == want_launch, f"shard2 {where}: launches {r.launches}, expected "
+                    f"{want_launch}")
+            for k, v in r.launches.items():
+                new_counts[k] += v
+        for i, (label, _, ref, tol, worst, _) in enumerate(plan):
+            got = res[0].value["results"][i]
+            require(got.shape == ref.shape and got.dtype == ref.dtype,
+                    f"shard2 {label}: {got.shape} {got.dtype}, expected {ref.shape} {ref.dtype}")
+            require(res[1].value["results"][i] == launch.digest(got),
+                    f"shard2 {label}: rank 1 holds another result than rank 0")
+            if i in repeats:
+                same = np.array_equal(got, res[0].value["results"][repeats[i]])
+                log("shard2", f"{where}: {label}, again: bitwise equal {same}; "
+                    f"{1e3 * res[0].value['seconds'][i]:.2f} ms in rank 0 (host clock, synchronised)")
+                require(same, f"shard2 {label}: a repeat run is not bitwise equal")
+                continue
+            if worst:
+                e = max(nrmse(got[z], ref[z]) for z in range(ref.shape[0]))
+            else:
+                e = nrmse(got, ref)
+            log("shard2", f"{where}: {label} vs the unsharded recon: "
+                f"{'worst-frame ' if worst else ''}nrmse {e:.3e} (tol {tol}), bitwise equal "
+                f"{np.array_equal(got, ref)}; {1e3 * res[0].value['seconds'][i]:.2f} ms in rank 0 "
+                f"(host clock, a first call of its kind)")
+            require(bool(np.isfinite(got).all()) and e <= tol, f"shard2 {label}: nrmse {e:.3e} > {tol}")
+        log("shard2", f"{where}: {len(plan)} sharded calls in one start of ranks, host wall "
+            f"{wall:.2f} s (processes, transfers and {sum(p[2].nbytes for p in plan) / 1e9:.2f} GB "
+            f"of results included); launches per rank {want_launch} on {card}")
+
+    shard2(1)
+    if ncards >= 2:
+        shard2(2)
+    else:
+        log("shard2", f"{ncards} card visible: the NCCL run on two cards is left out")
+    del refs, plan, kT, kdata, kout, host64, host16, ph64
+
+    # -- 26 clishard: tron-torch --shard, --shard-spokes, --stream --shard ------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+        ra_write(np.ascontiguousarray(indata[..., :1479])[..., None], path("in.ra"))
+        base = ["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "-g", "0"]
+        require(cli.main(base + [path("in.ra"), path("ref.ra")]) == 0, "clishard reference")
+        ref = ra_read(path("ref.ra"))
+        for extra, env in ((["--shard"], {}), (["--shard-spokes"], {}), (["--stream", "--shard"], {}),
+                           (["--stream", "--shard"], {"TRON_BATCHED": "1"})):
+            name = " ".join([f"{k}={v}" for k, v in env.items()] + extra)
+            kernel = "grid_radial2d_batched" if env else "grid_radial2d"
+            os.environ.update(env)
+            fresh_counts()
+            t0 = time.perf_counter()
+            try:
+                rc = cli.main(base + extra + [path("in.ra"), path("out.ra")])
+            finally:
+                for k in env:
+                    os.environ.pop(k)
+            wall = time.perf_counter() - t0
+            require(rc == 0, f"tron-torch {name}: exit {rc}")
+            if ncards == 1:   # in this process; with more cards main() starts a rank on each
+                counted({kernel: 61}, f"tron-torch {name}")
+            got = ra_read(path("out.ra"))
+            same = np.array_equal(got, ref)
+            e = nrmse(got, ref)
+            log("clishard", f"tron-torch -a -G -u 0.4 -d {SLIDE} {name} ({kernel}) on (6, 1, 512, 1479, 1), "
+                f"{ncards} card{'s' if ncards > 1 else ', a world of 1 in this process'}: {wall:.3f} s "
+                f"host wall; vs the unsharded file: nrmse {e:.3e}, bitwise equal {same}")
+            require(got.shape == ref.shape and e <= (1e-6 if ncards == 1 and not env else 1e-5),
+                    f"tron-torch {name}: nrmse {e:.3e}")
+            os.remove(path("out.ra"))
+            if env:   # the ranks below take the default kernel again
+                continue
+            # the same command as the two ranks of a world of 2 on one card
+            t0 = time.perf_counter()
+            res = launch.start_ranks("tron_tpu_torch.cli:rank_main", 2,
+                                     {"argv": base + extra + [path("in.ra"), path("out.ra")]},
+                                     cards=1, timeout=300.0)
+            wall = time.perf_counter() - t0
+            require([r.value for r in res] == [0, 0], f"tron-torch {name} in 2 ranks: {res}")
+            got = ra_read(path("out.ra"))
+            e = nrmse(got, ref)
+            grid_launches = [r.launches["grid_radial2d"] for r in res]
+            for r in res:
+                for k, v in r.launches.items():
+                    new_counts[k] += v
+            log("clishard", f"tron-torch {name} as 2 ranks on {res[0].backend}, 1 card: {wall:.2f} s "
+                f"host wall (processes included), grid_radial2d launches per rank {grid_launches}; "
+                f"rank 0's file vs the unsharded file: nrmse {e:.3e}, bitwise equal "
+                f"{np.array_equal(got, ref)}")
+            frames_split = [31, 30] if "--shard" in extra else [61, 61]
+            require(grid_launches == frames_split, f"tron-torch {name} in 2 ranks: {grid_launches}")
+            require(e <= (1e-5 if "--shard-spokes" in extra else 1e-6),
+                    f"tron-torch {name} in 2 ranks: nrmse {e:.3e}")
+            os.remove(path("out.ra"))
+    log("paths", f"launches of phases 20-26 by kernel: {new_counts}; at nxos 128 (B2's contract): "
         f"{b2_launches}")
 
     g_bound, g_by = grid_bound(wb_planes, wb_ang, 512)

@@ -409,3 +409,51 @@ def test_walsh_and_compress_on_the_card(dev, mode):
     want = recon_radial2d(d, cfg, device="cpu")
     assert got.shape == want.shape == (4, 1, 64, 64)
     assert _nrmse(torch.from_numpy(np.abs(got)), torch.from_numpy(np.abs(want))) <= 1e-4
+
+
+# -- the sharded recon on the card ---------------------------------------------
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_and_launch_the_kernels(dev):
+    """tools.dryrun_multichip on the card: two ranks on one device run over
+    gloo on CUDA tensors, pass the four sharded checks against the unsharded
+    port, and each launched the CUDA kernels (a CUDA rank never computes on
+    the CPU)."""
+    from tron_tpu_torch.tools import dryrun_multichip
+
+    res = dryrun_multichip.dryrun_multichip(2, timeout=300.0)
+    assert len(res) == 2
+    for r in res:
+        assert len(r.value) == 4 and r.imported == ()
+        assert r.device.startswith("cuda")
+        assert r.backend == ("gloo" if torch.cuda.device_count() < 2 else "nccl")
+        assert r.launches["grid_radial2d"] > 0 and r.launches["degrid_radial2d"] > 0
+
+
+@pytest.mark.gpu
+def test_sharded_scheduler_at_world_1_is_the_unsharded_one(dev):
+    """A 1 x 1 mesh with no process group: recon_frames_sharded gives
+    recon_frames' bits with recon_frames' launches, for each coil combine."""
+    import dataclasses
+
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.parallel import make_mesh, recon_frames_sharded
+    from tron_tpu_torch.recon import recon_frames
+
+    rng = np.random.default_rng(7)
+    d = torch.from_numpy(
+        (rng.standard_normal((3, 93, 128)) + 1j * rng.standard_normal((3, 93, 128))).astype(
+            np.complex64)).to(dev)
+    cfg = ReconConfig(golden_angle=True, data_undersamp=0.4, prof_slide=21, adjoint=True)
+    work, slide, nz = cfg.frame_geometry(128, 93)
+    mesh = make_mesh(1, 1, device=dev)
+    for combine in ("sos", "walsh", "none"):
+        c = dataclasses.replace(cfg, coil_combine=combine)
+        n0 = grid_cuda.LAUNCHES
+        want = recon_frames(d, c, work, slide, nz, 5)
+        n1 = grid_cuda.LAUNCHES
+        got = recon_frames_sharded(d, c, mesh, work, slide, nz, 5)
+        assert grid_cuda.LAUNCHES - n1 == n1 - n0 == nz
+        assert torch.equal(got, want)
+

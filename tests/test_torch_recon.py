@@ -239,7 +239,8 @@ def test_cli_forward_and_cgnr_match_tron(tmp_path, indata, monkeypatch):
 # flags that later slices ported: they pass the parser and the run goes on
 # to read the (missing) input
 PORTED_FLAGS = {"-i", "forward mode", "--stream", "-3", "--combine walsh", "--compress", "-B",
-                "-T", "-r", "--scheme", "--backend", "--precision", "--profile"}
+                "-T", "-r", "--scheme", "--backend", "--precision", "--profile", "--shard",
+                "--shard-spokes"}
 
 
 @pytest.mark.parametrize(

@@ -164,12 +164,48 @@ def test_transpose_mode_is_the_adjoint():
      dict(sample_mask=torch.ones(16))],
 )
 def test_multi_device_arguments_raise(kw):
-    _, cfg, _, ang, data = _problem(24, 16)
-    with pytest.raises(NotImplementedError, match="A17"):
-        solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2, **kw)
-    if "npe_total" in kw or "sample_mask" in kw:
-        with pytest.raises(NotImplementedError, match="A17"):
-            solver.toeplitz_fourier_kernel(_t(ang), cfg, 48, **kw)
+    """The multi-device arguments run (they raised until `parallel/` was
+    ported).  A mesh axis is a MeshAxis handle, which carries the process
+    group: on an axis of one rank it changes no bit, a bare axis name
+    raises, and so does a spoke axis that is also reduced over.  npe_total
+    and sample_mask weigh as tron_tpu/solver.py:83-86, 214-216 do: JAX's
+    results at TOL (on golden angles: with linear_half spoke 0 lies on a grid
+    row, where one ulp moves a window's edge neighbour)."""
+    from tron_tpu_torch.parallel.distributed import MeshAxis
+
+    jcfg = JaxConfig(golden_angle=True)
+    cfg = ReconConfig.from_jax_fields(dataclasses.asdict(jcfg))
+    ang = np.asarray(jangles(16, AngleScheme.GOLDEN, 3))
+    rng = np.random.default_rng(9)
+    data = (rng.standard_normal((2, 16, 48)) + 1j * rng.standard_normal((2, 16, 48))).astype(
+        np.complex64)
+    base = solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2)
+    if "reduce_axes" in kw or "spoke_axis" in kw:
+        with pytest.raises(TypeError, match="MeshAxis"):
+            solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2, **kw)
+        axes = {k: (MeshAxis(v[0]),) if k == "reduce_axes" else MeshAxis(v) for k, v in kw.items()}
+        got = solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2, **axes)
+        np.testing.assert_array_equal(got.numpy(), base.numpy())
+        with pytest.raises(ValueError, match="must not also be in reduce_axes"):
+            solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2, spoke_axis=MeshAxis("spoke"),
+                                 reduce_axes=(MeshAxis("spoke"),))
+        return
+    jkw = {k: jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    for operators in ("pair", "transpose", "toeplitz"):
+        want = np.asarray(jsolver.cgnr_radial2d(jnp.asarray(data), jnp.asarray(ang), jcfg, niter=2,
+                                                operators=operators, **jkw))
+        got = solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=2, operators=operators, **kw)
+        assert nrmse(got.numpy(), want) <= TOL
+    # an all-ones mask weighs nothing out; another frame's spoke count does
+    assert ("sample_mask" in kw) == bool(np.array_equal(got.numpy(), solver.cgnr_radial2d(
+        _t(data), _t(ang), cfg, niter=2, operators="toeplitz").numpy()))
+    want = np.asarray(jsolver.toeplitz_fourier_kernel(jnp.asarray(ang), jcfg, 48, **jkw))
+    assert nrmse(solver.toeplitz_fourier_kernel(_t(ang), cfg, 48, **kw).numpy(), want) <= 1e-5
+    half = torch.arange(16) < 8
+    masked = solver.toeplitz_fourier_kernel(_t(ang), cfg, 48, sample_mask=half)
+    other = solver.toeplitz_fourier_kernel(_t(ang), cfg, 48, sample_mask=~half)
+    whole = solver.toeplitz_fourier_kernel(_t(ang), cfg, 48)
+    assert nrmse((masked + other).numpy(), whole.numpy()) <= 1e-6  # shards' kernels sum to the frame's
 
 
 @pytest.mark.parametrize("method,n,npe", [("nufft", 32, 24), ("exact", 16, 11)])

@@ -228,19 +228,26 @@ def test_ra_writer_matches_jax(tmp_path):
 
 
 def test_stream_refusals(tmp_path, on_cpu, capsys):
-    """Unported stream modes exit 2 naming the flag; input errors exit 1
-    and leave no partial output; forward --stream notes it loads in
-    memory.  The modes ported since (-3 --stream, --compress
-    without --stream, --stream --combine walsh) run."""
+    """Input errors exit 1 and leave no partial output; forward --stream
+    notes it loads in memory.  Every stream mode is ported and runs:
+    --stream --shard (the sharded scheduler, here a world of one rank),
+    --stream --shard-spokes (in memory, with a note), -3 --stream,
+    --compress without --stream, --stream --combine walsh."""
     p = _write(tmp_path, "d.ra", (2, 1, 32, 40, 1), 9)
     out = str(tmp_path / "o.ra")
+    assert cli.main(["-a", "--stream", str(p), out]) == 0
+    plain = ra_read(out)
     for argv, msg in (
-        (["-a", "--stream", "--shard"], "error: --shard"),
-        (["-a", "--stream", "--shard-spokes"], "error: --shard-spokes"),
+        (["-a", "--stream", "--shard"], ""),
+        (["-a", "--stream", "--shard-spokes"],
+         "note: --stream ignored (--shard-spokes loads the input in memory)\n"),
     ):
-        assert cli.main(argv + [str(p), out]) == 2
-        assert msg in capsys.readouterr().err
-        assert not os.path.exists(out)
+        os.remove(out)
+        assert cli.main(argv + [str(p), out]) == 0
+        cap = capsys.readouterr()
+        assert cap.err == "" and cap.out == msg
+        np.testing.assert_array_equal(ra_read(out), plain)
+    os.remove(out)
     for argv in (["-3", "-a", "--stream"], ["-a", "--compress", "1"],
                  ["-a", "--stream", "--combine", "walsh"]):
         assert cli.main(argv + [str(p), out]) == 0
@@ -261,8 +268,13 @@ def test_stream_refusals(tmp_path, on_cpu, capsys):
 def test_streaming_driver_guards(tmp_path):
     p = _write(tmp_path, "d.ra", (2, 1, 32, 40, 1), 10)
     cfg = _port_cfg(_jax_cfg())
-    with pytest.raises(NotImplementedError, match="A17"):
-        recon.recon_radial2d_streaming(p, cfg, mesh=object(), device="cpu")
+    from tron_tpu_torch.parallel import make_mesh
+
+    # a mesh of one rank: the sharded scheduler on the mesh's device, the
+    # unsharded stream's bits
+    np.testing.assert_array_equal(
+        recon.recon_radial2d_streaming(p, cfg, mesh=make_mesh(device="cpu")),
+        recon.recon_radial2d_streaming(p, cfg, device="cpu"))
     with pytest.raises(ValueError, match="adjoint"):
         recon.recon_radial2d_streaming(p, dataclasses.replace(cfg, adjoint=False), device="cpu")
     if not torch.cuda.is_available():  # the default device is the card, never the CPU

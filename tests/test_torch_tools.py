@@ -1,9 +1,15 @@
 """The port's fixture and file tools (tron_tpu_torch.tools.make_phantom,
 make_goldenangle, ra_tool, tron_tpu_torch.viz, io.ra_convert) vs the JAX
-package's on the CPU: the same arguments give the same files.
+package's on the CPU: the same arguments give the same files.  Then the two
+comparison tools (tools.compare_recon, tools.dataset_metrics) vs
+scripts/compare_recon.py and scripts/dataset_metrics.py, the multi-device
+dry run (tools.dryrun_multichip, gloo ranks on the CPU) and the port's three
+examples beside the JAX ones.
 """
 
+import csv
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -18,7 +24,14 @@ from tron_tpu.tools import make_phantom as jphantom
 from tron_tpu.tools import ra_tool as jra_tool
 from tron_tpu_torch import viz
 from tron_tpu_torch.io import ra_convert, ra_query, ra_read, ra_write
-from tron_tpu_torch.tools import make_goldenangle, make_phantom, ra_tool
+from tron_tpu_torch.tools import (
+    compare_recon,
+    dataset_metrics,
+    dryrun_multichip,
+    make_goldenangle,
+    make_phantom,
+    ra_tool,
+)
 
 torch.set_num_threads(1)
 
@@ -150,3 +163,129 @@ def test_tools_are_registered():
         text = f.read()
     assert 'tron-torch-ra = "tron_tpu_torch.tools.ra_tool:main"' in text
     assert 'tron-torch = "tron_tpu_torch.cli:main"' in text
+
+
+# -- the comparison tools --------------------------------------------------------
+
+
+def _script(name, argv, cwd):
+    """A script of scripts/ as the JAX package ships it: its own process."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", name), *argv],
+                          capture_output=True, text=True, timeout=600, env=env, cwd=cwd)
+    assert proc.returncode == 0, f"{name}: {proc.stdout}\n{proc.stderr}"
+    return proc.stdout
+
+
+def _rows(path):
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+@pytest.mark.parametrize("golden", [False, True], ids=["linear_half", "golden"])
+def test_compare_recon_matches_the_jax_script(tmp_path, golden):
+    """The same methods and CSV columns as scripts/compare_recon.py, and on
+    the CPU the same numbers (time_s apart): the plain gridder against the
+    DTFT oracle.  The CUDA-kernel row needs the card and is said to be
+    skipped."""
+    pytest.importorskip("matplotlib")
+    argv = ["--n", "32", "--npe", "48"] + (["--golden"] if golden else [])
+    _script("compare_recon.py", argv + ["--skip-pallas", "--out", str(tmp_path / "j")], tmp_path)
+    rows = compare_recon.main(argv + ["--device", "cpu", "--out", str(tmp_path / "p")])
+    want, got = (_rows(tmp_path / k / "compare_n32_npe48.csv") for k in "jp")
+    assert [r["method"] for r in got] == [r["method"] for r in want] == ["tron-jnp", "oracle"]
+    assert list(got[0]) == list(want[0]) and len(rows) == 2
+    for g, w in zip(got, want):
+        for col in ("nmse_vs_ref", "nrmse_vs_ref", "ssim_vs_ref", "nrmse_vs_truth"):
+            assert float(g[col]) == pytest.approx(float(w[col]), rel=1e-3, abs=1e-6), col
+    assert sorted(os.listdir(tmp_path / "p")) == sorted(os.listdir(tmp_path / "j"))
+
+
+def test_compare_recon_needs_the_card_unless_cpu_is_asked(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compare_recon.main(["--n", "16", "--npe", "8", "--out", str(tmp_path / "o")])
+
+
+@pytest.mark.parametrize("oracle", [False, True], ids=["plain", "oracle"])
+def test_dataset_metrics_matches_the_jax_script(tmp_path, monkeypatch, oracle):
+    """scripts/dataset_metrics.py and the port's tool on one fixture and one
+    recon of it: the same CSV schema and, on the CPU, the same scores."""
+    data, img = str(tmp_path / "ga.ra"), str(tmp_path / "img.ra")
+    make_goldenangle.main([data, "--nc", "2", "--nro", "64", "--npe", "58", "--device", "cpu"])
+    from tron_tpu_torch import cli
+
+    monkeypatch.setattr(cli, "resolve_device", lambda index=0: torch.device("cpu"))
+    assert cli.main(["-a", "-G", "-u", "0.5", "-d", "13", data, img]) == 0
+    argv = [img, "--data", data, "--nc", "2", "-G", "-u", "0.5", "-d", "13", "--frames", "0,-1"]
+    argv += ["--oracle"] if oracle else []
+    _script("dataset_metrics.py", argv + ["--csv", str(tmp_path / "j.csv")], tmp_path)
+    rows = dataset_metrics.main(argv + ["--csv", str(tmp_path / "p.csv"), "--device", "cpu"])
+    want, got = _rows(tmp_path / "j.csv"), _rows(tmp_path / "p.csv")
+    assert list(got[0]) == list(want[0]) == dataset_metrics.FIELDS
+    assert [r["frame"] for r in got] == [r["frame"] for r in want] == ["0", "2"] and len(rows) == 2
+    for g, w in zip(got, want):
+        assert (g["oracle_nrmse"] == "") == (not oracle)
+        for col in dataset_metrics.FIELDS[2:]:
+            if g[col] != "":
+                assert float(g[col]) == pytest.approx(float(w[col]), rel=1e-3, abs=2e-6), col
+        assert float(g["nmse_vs_xla"]) < 1e-9  # the image is the plain gridder's own
+    # a second run appends under the same header; an older schema is moved aside
+    dataset_metrics.main(argv + ["--csv", str(tmp_path / "p.csv"), "--device", "cpu"])
+    assert len(_rows(tmp_path / "p.csv")) == 4
+    (tmp_path / "old.csv").write_text("label,frame\nx,0\n")
+    dataset_metrics.main(argv + ["--csv", str(tmp_path / "old.csv"), "--device", "cpu"])
+    assert (tmp_path / "old.csv.old").exists() and len(_rows(tmp_path / "old.csv")) == 2
+
+
+# -- the dry run and the examples ----------------------------------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_multichip(n):
+    """python -m tron_tpu_torch.tools.dryrun_multichip N --device cpu: the
+    four checks of __graft_entry__.py:30-157 pass on every rank."""
+    res = dryrun_multichip.dryrun_multichip(n, device="cpu", timeout=240.0)
+    assert len(res) == n
+    for r in res:
+        assert r.value == ["frame x coil CGNR", "spoke-sharded CGNR",
+                           "sharded incremental, skip0 7", "slice-sharded -3"]
+        assert r.imported == ()
+
+
+def test_dryrun_multichip_command_line(capsys):
+    assert dryrun_multichip.main(["3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "3 ranks (gloo" in out and "mesh frame 3 x coil 1" in out and "4 checks passed" in out
+
+
+def _run_example(script, args):
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)  # JAX's example 3 sets its own device count
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "examples", script), *args],
+                          capture_output=True, text=True, timeout=600, env=env)
+    assert proc.returncode == 0, f"{script}: {proc.stdout}\n{proc.stderr}"
+    return [ln for ln in proc.stdout.splitlines() if "NRMSE" in ln]
+
+
+@pytest.mark.parametrize(
+    "script, args",
+    [
+        ("01_phantom_roundtrip.py", ["--cpu", "--n", "48", "--npe", "96"]),
+        ("02_cgnr_and_coils.py", ["--cpu", "--n", "48", "--npe", "72", "--niter", "3"]),
+        ("03_sharded_recon.py", ["--n", "32", "--frames", "8"]),
+    ],
+)
+def test_torch_example_runs_and_prints_what_the_jax_one_prints(script, args):
+    """As tests/test_examples.py runs the JAX examples; the port's print the
+    same NRMSE lines (example 3's, whose digits are rounding noise below its
+    1e-5 gate, up to that number)."""
+    want = _run_example(script, args)
+    got = _run_example(f"torch_{script}", args + (["--cpu"] if script.startswith("03") else []))
+    assert len(got) == len(want) >= 1
+    if script.startswith("03"):
+        assert got[0].split("NRMSE")[0] == want[0].split("NRMSE")[0]
+        assert float(got[0].rsplit(" ", 1)[1]) < 1e-5
+    else:
+        assert got == want

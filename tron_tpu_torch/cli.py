@@ -5,7 +5,7 @@
                [-B blocks] [-T threads] [-r nro] [-g gpu]
                [--scheme linear_half|linear_full] [--sdc ramlak|ideal]
                [--combine sos|walsh|none] [--compress N] [--half]
-               [--toeplitz] [--incremental] [--stream]
+               [--toeplitz] [--incremental] [--stream] [--shard | --shard-spokes]
                [--backend auto|jnp|pallas] [--precision fast|accurate]
                [--profile DIR] in.ra [out.ra]
 
@@ -22,14 +22,21 @@ block and lands each block of images in its region of the output file; with
 the coils onto N virtual coils (ignored with `-3`).  `-g` picks the CUDA
 device; `-B`, `-T` and `-r` are accepted and ignored, as `tron` does.
 
-Exit status 2, with one line naming the reason: `--shard`, `--shard-spokes`
-(multi-GPU, not ported yet), `--dft-dot` (the port has no MXU DFT) and
-`-k` outside 0 < w < 7 (the kernels' weight windows).
+`--shard` splits the frames (with `-3` the kz slices, without `-a` the image
+slices) over one process per CUDA device, `--shard-spokes` each frame's
+spokes (`tron_tpu_torch/parallel/`).  Under `torchrun` (RANK, WORLD_SIZE and
+LOCAL_RANK set) the program joins that world, every rank reads the input and
+rank 0 writes the output; otherwise it starts one rank per visible card
+itself, and with one card it runs in this process, on the card `-g` names.
+
+Exit status 2, with one line naming the reason: `--dft-dot` (the port has
+no MXU DFT) and `-k` outside 0 < w < 7 (the kernels' weight windows).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -86,6 +93,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--incremental", action="store_true",
                    help="telescoping sliding-window gridding (golden-angle "
                    "overlapping windows; other cases use the direct path)")
+    p.add_argument("--shard", action="store_true",
+                   help="shard frames (-3: kz slices; forward: image slices) across "
+                   "one process per CUDA device")
+    p.add_argument("--shard-spokes", action="store_true",
+                   help="shard each frame's spokes across one process per CUDA device "
+                   "(adjoint 2D recon; the latency-parallel single-frame mode: partial "
+                   "grids are summed over a 'spoke' mesh axis)")
     p.add_argument("--stream", action="store_true",
                    help="stream profile windows from disk instead of loading "
                    "the whole acquisition (adjoint recon, any nt, complex/"
@@ -117,6 +131,50 @@ def _block_to_disk_order(blk: np.ndarray, half: bool) -> np.ndarray:
         return np.ascontiguousarray(blk.transpose(0, 2, 3, 1))
     # (bf, nt, nc, ny, nx) -> (bf, y, x, t, c)
     return np.ascontiguousarray(blk.transpose(0, 3, 4, 1, 2))
+
+
+def _recon_sharded_cli(indata, cfg: ReconConfig, mesh) -> np.ndarray:
+    """--shard: the frame-sharded adjoint recon over the mesh (counterpart of
+    `tron_tpu/cli.py:107-128`).  Repetitions loop on the host; every coil
+    combine runs ('none' keeps the coil axis, as on the unsharded path)."""
+    import torch
+
+    from tron_tpu_torch.parallel import recon_frames_sharded
+
+    nc, nt, nro, npe1 = indata.shape[:4]
+    work, slide, nz = cfg.frame_geometry(nro, npe1)
+    d4 = indata.reshape(nc, nt, nro, npe1, -1)[..., 0]
+    outs = []
+    for t in range(nt):
+        d = np.ascontiguousarray(np.transpose(d4[:, t], (0, 2, 1)), dtype=np.complex64)
+        out = recon_frames_sharded(torch.from_numpy(d).to(mesh.device), cfg, mesh, work, slide, nz)
+        outs.append(out.cpu().numpy())
+    return np.stack(outs, axis=1)  # (nz, nt, [nc,] n, n)
+
+
+def _recon_spoke_sharded_cli(indata, cfg: ReconConfig, mesh) -> np.ndarray:
+    """--shard-spokes: every frame's profiles split over the mesh
+    (`parallel/spoke.py`), the latency-parallel mode for frames that must
+    come out one at a time (counterpart of `tron_tpu/cli.py:131-162`).
+    Frames and repetitions loop on the host."""
+    import torch
+
+    from tron_tpu_torch.parallel import recon_window_spoke_sharded
+
+    nc, nt, nro, npe1 = indata.shape[:4]
+    work, slide, nz = cfg.frame_geometry(nro, npe1)
+    d4 = indata.reshape(nc, nt, nro, npe1, -1)[..., 0]
+    outs = []
+    for t in range(nt):
+        d = torch.from_numpy(
+            np.ascontiguousarray(np.transpose(d4[:, t], (0, 2, 1)), dtype=np.complex64)
+        ).to(mesh.device)
+        frames = [
+            recon_window_spoke_sharded(d[:, z * slide : z * slide + work], cfg, mesh, skip=z * slide)
+            for z in range(nz)
+        ]
+        outs.append(torch.stack(frames).cpu().numpy())  # (nz, [nc,] n, n)
+    return np.stack(outs, axis=1)  # (nz, nt, [nc,] n, n)
 
 
 def _run_streamed(args, base_dims, prep, recon_call) -> int:
@@ -151,10 +209,12 @@ def _run_streamed(args, base_dims, prep, recon_call) -> int:
     return 0
 
 
-def _stream_to_file(args, cfg: ReconConfig, hdr, device) -> int:
+def _stream_to_file(args, cfg: ReconConfig, hdr, device, mesh=None, root: bool = True) -> int:
     """--stream: each block of images lands in its region of the output .ra
     while the card computes the next block; peak host memory is a few
-    blocks, not the whole series (counterpart of `tron_tpu/cli.py:218-241`)."""
+    blocks, not the whole series (counterpart of `tron_tpu/cli.py:218-241`).
+    With ``mesh`` (--stream --shard) every rank runs the streamed recon and
+    the ``root`` rank alone opens and writes the output."""
     from tron_tpu_torch.io.native import radial_dims
     from tron_tpu_torch.recon import recon_radial2d_streaming
 
@@ -164,14 +224,15 @@ def _stream_to_file(args, cfg: ReconConfig, hdr, device) -> int:
     nc_out = 1
     if cfg.coil_combine == "none":
         nc_out = cfg.coil_compress if 0 < cfg.coil_compress < nc else nc
-    return _run_streamed(
-        args,
-        (nc_out, nt, n, n, nz),
-        lambda blk: blk,
-        lambda writer: recon_radial2d_streaming(
-            args.infile, cfg, writer=writer, half=args.half, device=device
-        ),
-    )
+    def recon_call(writer):
+        recon_radial2d_streaming(
+            args.infile, cfg, mesh=mesh, writer=writer, half=args.half, device=device
+        )
+
+    if not root:
+        recon_call(lambda z0, blk: None)
+        return 0
+    return _run_streamed(args, (nc_out, nt, n, n, nz), lambda blk: blk, recon_call)
 
 
 def _stream_koosh_to_file(args, cfg: ReconConfig, hdr, device) -> int:
@@ -211,8 +272,6 @@ def _stream_koosh_to_file(args, cfg: ReconConfig, hdr, device) -> int:
 
 # flags of `tron` that the port does not run, each with its reason
 _REFUSED = {
-    "--shard": "multi-GPU frame sharding is not ported yet (ROADMAP A17)",
-    "--shard-spokes": "multi-GPU spoke sharding is not ported yet (ROADMAP A17)",
     "--dft-dot": "not ported: the port has no MXU DFT, its FFTs go through torch.fft",
 }
 
@@ -239,7 +298,17 @@ def _profiler(profile_dir, device):
     )
 
 
-def main(argv=None) -> int:
+# s; a sharded run started here that takes longer is stopped
+RANKS_TIMEOUT_S = 24 * 3600.0
+
+
+def rank_main(ctx, argv: list) -> int:
+    """One rank of a sharded run started by main() (`parallel/launch.py`)."""
+    return main(argv, _rank=ctx)
+
+
+def main(argv=None, _rank=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, unknown = build_parser().parse_known_args(argv)
     for a in unknown:
         if a.startswith("-"):
@@ -262,9 +331,53 @@ def main(argv=None) -> int:
               f"0 < kernwidth < {MAX_KERNWIDTH:g}", file=sys.stderr)
         return 2
 
+    # -- which rank of how many this process is ------------------------------
+    sharded = args.shard or args.shard_spokes
+    rank, world, device = 0, 1, None
+    if _rank is not None:
+        rank, world, device = _rank.rank, _rank.world, _rank.device
+    elif sharded and "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        # under torchrun: join its world, run, leave
+        from tron_tpu_torch.parallel import distributed
+
+        distributed.initialize()
+        try:
+            return _run(
+                args, distributed.rank(), distributed.world_size(), distributed.default_device()
+            )
+        finally:
+            distributed.shutdown()
+    elif sharded:
+        import torch
+
+        cards = torch.cuda.device_count()
+        if cards > 1:
+            from tron_tpu_torch.parallel import launch
+
+            results = launch.start_ranks(
+                "tron_tpu_torch.cli:rank_main", cards, {"argv": argv}, timeout=RANKS_TIMEOUT_S
+            )
+            return max(r.value for r in results)
+    return _run(args, rank, world, device)
+
+
+def _run(args, rank: int, world: int, device) -> int:
+    """The run of one rank of ``world`` on ``device`` (None: the card `-g`
+    names).  Rank 0 prints and writes the output."""
+    root = rank == 0
+
     def vprint(*a):
-        if args.verbose:
+        if args.verbose and root:
             print(*a, file=sys.stderr)
+
+    def note(msg):
+        if root:
+            print(f"note: {msg}")
+
+    def fail(msg) -> int:
+        if root:
+            print(f"error: {msg}", file=sys.stderr)
+        return 1
 
     cfg = ReconConfig(
         gridos=args.gridos,
@@ -285,19 +398,43 @@ def main(argv=None) -> int:
         coil_compress=args.compress,
         matmul_dtype="bf16x3" if args.precision == "accurate" else "bfloat16",
     )
-    if args.incremental and (not cfg.golden_angle or cfg.niter > 0):
-        why = "CGNR (-i)" if cfg.niter > 0 else "non-golden-angle scheme"
-        print(f"note: --incremental ignored ({why} uses the direct path)")
-    # -3 --stream has its own recon, blocked over npe1 (kz cannot stream:
-    # its inverse FFT mixes every npe2 encoding of a sample)
-    koosh_stream = args.stream and cfg.adjoint and cfg.koosh
-    stream = args.stream and cfg.adjoint and not cfg.koosh
+    # --shard honours --incremental (each frame shard telescopes from its own
+    # first frame, `parallel/mesh.py`), so no note for it
+    if args.incremental and (args.shard_spokes or not cfg.golden_angle or cfg.niter > 0):
+        why = (
+            "spoke-sharded recon" if args.shard_spokes
+            else "CGNR (-i)" if cfg.niter > 0
+            else "non-golden-angle scheme"
+        )
+        note(f"--incremental ignored ({why} uses the direct path)")
+    # --stream composes with --shard (each disk block's frames go through the
+    # sharded scheduler); --shard-spokes stays in memory.  -3 --stream has
+    # its own recon, blocked over npe1 (kz cannot stream: its inverse FFT
+    # mixes every npe2 encoding of a sample)
+    koosh_stream = (
+        args.stream and cfg.adjoint and cfg.koosh and not args.shard and not args.shard_spokes
+    )
+    stream = args.stream and cfg.adjoint and not cfg.koosh and not args.shard_spokes
     if args.stream and not stream and not koosh_stream:
-        print("note: --stream ignored (forward mode loads the input in memory)")
+        why = (
+            "--shard-spokes" if args.shard_spokes
+            else "forward mode" if not cfg.adjoint
+            else "-3 --shard"
+        )
+        note(f"--stream ignored ({why} loads the input in memory)")
     if cfg.koosh and cfg.coil_compress:
         # neither stack-of-stars recon compresses coils: say so instead of
         # silently writing nc uncompressed coils
-        print("note: --compress ignored (-3 recons all physical coils)")
+        note("--compress ignored (-3 recons all physical coils)")
+    elif cfg.coil_compress and (args.shard_spokes or (args.shard and not stream)):
+        # as `tron`, whose in-memory sharded recons take the physical coils;
+        # here it is said
+        note("--compress ignored (the in-memory sharded recons take all physical coils)")
+
+    def frame_mesh():
+        from tron_tpu_torch.parallel import make_mesh
+
+        return make_mesh(n_frame=world, n_coil=1, device=device)
 
     if stream or koosh_stream:
         # only the header is read here; profile windows are read block by
@@ -311,19 +448,20 @@ def main(argv=None) -> int:
             # a 6-D re/im-pair file counts as 5-D, as on the in-memory path
             ndim = len(hdr.dims) - (1 if radial_dims(hdr)[5] else 0)
         except (FileNotFoundError, ValueError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 1
+            return fail(e)
         if ndim != 5:
-            print(f"error: expected 5-D .ra input, got {ndim}-D", file=sys.stderr)
-            return 1
+            return fail(f"expected 5-D .ra input, got {ndim}-D")
         vprint(f"indims = {tuple(int(x) for x in hdr.dims)}")
-        device = resolve_device(args.device)
+        if device is None:
+            device = resolve_device(args.device)
         start = time.perf_counter()
         with _profiler(args.profile, device):
             if koosh_stream:
                 rc = _stream_koosh_to_file(args, cfg, hdr, device)
             else:
-                rc = _stream_to_file(args, cfg, hdr, device)
+                rc = _stream_to_file(
+                    args, cfg, hdr, device, frame_mesh() if args.shard else None, root
+                )
         vprint(f"Elapsed time: {time.perf_counter() - start:.2f} s")
         if rc == 0:
             vprint(f"Saved result to {args.outfile}")
@@ -333,8 +471,7 @@ def main(argv=None) -> int:
     try:
         indata = ra_read(args.infile)
     except (FileNotFoundError, ValueError) as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
+        return fail(e)
     if not np.iscomplexobj(indata):
         # a leading dim of 2 is the re/im-pair convention of the MATLAB
         # raread/rawrite twins (src/raread.m:25-57); anything else is promoted
@@ -345,17 +482,40 @@ def main(argv=None) -> int:
         else:
             indata = indata.astype(np.complex64)
     if indata.ndim != 5:
-        print(f"error: expected 5-D .ra input, got {indata.ndim}-D", file=sys.stderr)
-        return 1
+        return fail(f"expected 5-D .ra input, got {indata.ndim}-D")
     vprint(f"indims = {indata.shape}")
 
     from tron_tpu_torch.recon import recon_radial2d
 
-    device = resolve_device(args.device)
+    if device is None:
+        device = resolve_device(args.device)
     start = time.perf_counter()
     with _profiler(args.profile, device):
-        out = recon_radial2d(indata, cfg, half_readback=args.half and cfg.adjoint, device=device)
+        if args.shard and cfg.adjoint and not cfg.koosh:
+            out = _recon_sharded_cli(indata, cfg, frame_mesh())
+        elif args.shard and cfg.adjoint:
+            # -3 --shard: after the kz inverse FFT the slices are as
+            # independent as frames, and shard over 'frame' like them
+            from tron_tpu_torch.parallel import recon_stack_of_stars_sharded
+
+            out = recon_stack_of_stars_sharded(indata, cfg, frame_mesh())
+        elif args.shard:
+            # forward --shard: image slices degrid independently; -3 adds
+            # one gather before the kz FFT
+            from tron_tpu_torch.parallel import recon_forward_sharded
+
+            out = recon_forward_sharded(indata, cfg, frame_mesh())
+        elif args.shard_spokes and cfg.adjoint and not cfg.koosh:
+            from tron_tpu_torch.parallel import make_spoke_mesh
+
+            out = _recon_spoke_sharded_cli(indata, cfg, make_spoke_mesh(device=device))
+        else:
+            out = recon_radial2d(
+                indata, cfg, half_readback=args.half and cfg.adjoint, device=device
+            )
     vprint(f"Elapsed time: {time.perf_counter() - start:.2f} s")
+    if not root:
+        return 0
 
     if not cfg.adjoint:
         # out: (nz, nc, nt, npe1, nro) -> .ra dims (nc, nt, nro, npe1, npe2=nz)

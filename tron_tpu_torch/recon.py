@@ -4,10 +4,10 @@ the forward operator over image stacks, and the 3-D stack-of-stars (`-3`)
 recon, in memory and streamed.
 
 Frames run in order in a Python loop, each written into one preallocated
-output (the JAX package's ``lax.map`` / ``lax.scan``).  The one feature of
-the JAX recon that is still to port (frame-sharded streaming, ``mesh``)
-raises ``NotImplementedError`` naming its ROADMAP item; nothing falls back
-silently.
+output (the JAX package's ``lax.map`` / ``lax.scan``).  The frame schedulers
+take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when the coils
+they are given are one shard of a mesh's 'coil' axis: the coil combine and
+the CGNR inner products then finish over that axis (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -32,12 +32,9 @@ from tron_tpu_torch.nufft import (
 )
 from tron_tpu_torch.ops import grid_cuda
 from tron_tpu_torch.ops.coil import coil_combine_sos, coil_combine_walsh, coil_compress
+from tron_tpu_torch.parallel.distributed import MeshAxis, all_gather_cat, psum
 from tron_tpu_torch.solver import cgnr_radial2d
 from tron_tpu_torch.trajectory import spoke_angles
-
-
-def _unported(feature: str, item: str):
-    raise NotImplementedError(f"{feature} is not ported yet (ROADMAP {item})")
 
 
 def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
@@ -61,10 +58,23 @@ def _from_half_planes(planes: np.ndarray) -> np.ndarray:
     )
 
 
-def _combine(coilimg: torch.Tensor, cfg: ReconConfig) -> torch.Tensor:
+def _combine(
+    coilimg: torch.Tensor, cfg: ReconConfig, coil_axis: MeshAxis | None = None
+) -> torch.Tensor:
+    """Coil images (C, n, n) -> the frame per cfg.coil_combine.  With the
+    coils sharded over ``coil_axis``: "sos" sums the shards' partial sums of
+    squares over the axis (one real image all_reduced), "walsh" gathers the
+    coil shards first (its eigenvector filter needs the full covariance),
+    "none" leaves the shard as it is."""
+    sharded = coil_axis is not None and coil_axis.size > 1
     if cfg.coil_combine == "walsh":
+        if sharded:
+            coilimg = all_gather_cat(coilimg, coil_axis, dim=0)
         return coil_combine_walsh(coilimg, cfg.walsh_npatch)
     if cfg.coil_combine == "sos":
+        if sharded:
+            part = torch.sum(torch.abs(coilimg) ** 2, dim=0)
+            return torch.sqrt(psum(part, coil_axis)).to(coilimg.dtype)
         return coil_combine_sos(coilimg, axis=0)
     if cfg.coil_combine == "none":
         return coilimg
@@ -81,16 +91,22 @@ def _map_frames(one, nz: int) -> torch.Tensor:
     return out
 
 
-def reconstruct_frame(data_window: torch.Tensor, skip, cfg: ReconConfig) -> torch.Tensor:
+def reconstruct_frame(
+    data_window: torch.Tensor, skip, cfg: ReconConfig, coil_axis: MeshAxis | None = None
+) -> torch.Tensor:
     """One frame: (nc, npe1work, nro) -> combined image (n, n).  ``skip`` is
     the frame's global profile offset (skip_angles + z*prof_slide)."""
     npe = data_window.shape[-2]
     angles = spoke_angles(npe, cfg.scheme_for("adjoint"), skip, device=data_window.device)
     if cfg.niter > 0:
-        coilimg = cgnr_radial2d(data_window, angles, cfg)
+        # with sharded coils the CG inner products are global over the shards
+        sharded = coil_axis is not None and coil_axis.size > 1
+        coilimg = cgnr_radial2d(
+            data_window, angles, cfg, reduce_axes=(coil_axis,) if sharded else ()
+        )
     else:
         coilimg = nufft_adjoint(data_window, angles, cfg)
-    return _combine(coilimg, cfg)
+    return _combine(coilimg, cfg, coil_axis)
 
 
 def recon_frames(
@@ -100,9 +116,11 @@ def recon_frames(
     prof_slide: int,
     nz: int,
     skip0: int = 0,
+    coil_axis: MeshAxis | None = None,
 ) -> torch.Tensor:
     """All frames on data's device. data: (nc, npe1, nro) -> (nz, n, n).
-    ``skip0`` is the global profile offset of data[..., 0, :]."""
+    ``skip0`` is the global profile offset of data[..., 0, :]; ``coil_axis``
+    the mesh axis that ``data``'s coils are one shard of, if any."""
     nro = data.shape[-1]
     if cfg.niter == 0 and planes_path_ok(cfg):
         # hoist the once-per-acquisition half of the gridder's sample prep
@@ -119,14 +137,14 @@ def recon_frames(
             angles = spoke_angles(
                 npe1work, scheme, cfg.skip_angles + skip0 + pe0, device=data.device
             )
-            return _combine(nufft_adjoint_planes(win, angles, cfg), cfg)
+            return _combine(nufft_adjoint_planes(win, angles, cfg), cfg, coil_axis)
 
     else:
 
         def one(z):
             pe0 = z * prof_slide
             win = data[..., pe0 : pe0 + npe1work, :]
-            return reconstruct_frame(win, cfg.skip_angles + skip0 + pe0, cfg)
+            return reconstruct_frame(win, cfg.skip_angles + skip0 + pe0, cfg, coil_axis)
 
     return _map_frames(one, nz)
 
@@ -150,6 +168,7 @@ def recon_frames_incremental(
     prof_slide: int,
     nz: int,
     skip0: int = 0,
+    coil_axis: MeshAxis | None = None,
 ) -> torch.Tensor:
     """Telescoping sliding-window recon.  Same contract as recon_frames.
 
@@ -199,7 +218,7 @@ def recon_frames_incremental(
         return spoke_angles(m, scheme, cfg.skip_angles + skip0 + pe0, device=data.device)
 
     def frame_image(kg):
-        return _combine(_adjoint_epilogue(kg, n, cfg, beta), cfg)
+        return _combine(_adjoint_epilogue(kg, n, cfg, beta), cfg, coil_axis)
 
     return incremental_scan(
         window, angles_of, gridw, frame_image, npe1work, prof_slide, nz,
@@ -448,15 +467,22 @@ def recon_radial2d_streaming(
     projects each block on the host before upload.
 
     Without ``writer``, returns all frames stacked: (nz, nt, [nc,] n, n)
-    complex64, or (2, nz, nt, [nc,] n, n) float16 when half.  ``mesh``
-    (frame-sharded streaming) is not ported yet.
+    complex64, or (2, nz, nt, [nc,] n, n) float16 when half.
+
+    ``mesh``: a ('frame', 'coil') ``parallel.ProcessMesh``.  Every rank then
+    calls this on the same file and each block's frames are split over the
+    mesh as ``parallel.recon_frames_sharded`` splits them, the block's
+    profile offset as its skip0: a rank reads from disk only the profiles
+    its own frames of the block need, reconstructs them on ``mesh.device``,
+    and the block is gathered, so every rank's sink sees every block (the
+    CLI gives only rank 0 one that writes).
     """
     from tron_tpu_torch.device import resolve_device
     from tron_tpu_torch.io import ra_query
     from tron_tpu_torch.io.native import ra_read_profiles, radial_dims
 
     if mesh is not None:
-        _unported("mesh (frame-sharded streaming)", "A17")
+        device = mesh.device
     device = resolve_device() if device is None else torch.device(device)
     hdr = ra_query(path)
     nc, nt, nro, npe1, npe2, _pair = radial_dims(hdr)
@@ -473,17 +499,30 @@ def recon_radial2d_streaming(
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     bf = min(batch_frames, nz)
     z0s = _block_starts(nz, bf)  # every block has one shape
-    npe_blk = work + (bf - 1) * slide
-    frames_fn = (
-        recon_frames_incremental
-        if cfg.incremental and incremental_applicable(cfg, work, slide, bf)
-        else recon_frames
-    )
+    incremental = cfg.incremental and incremental_applicable(cfg, work, slide, bf)
+    if mesh is None:
+        z_lo, nloc = 0, bf
+        frames_fn = recon_frames_incremental if incremental else recon_frames
+    else:
+        from tron_tpu_torch.parallel.distributed import frame_slice
+        from tron_tpu_torch.parallel.mesh import gather_frames, recon_frames_shard
+
+        # this rank's frames of a block, the same in every block
+        mine = frame_slice(bf, mesh.axis("frame").size, mesh.axis("frame").index)
+        z_lo, nloc = mine.start, mine.stop - mine.start
+
+        def frames_fn(d_t, cfg, work, slide, bf, pe0):
+            local = recon_frames_shard(d_t, cfg, mesh, work, slide, nloc, pe0, incremental)
+            return gather_frames(local, cfg, mesh, bf)
+
+    npe_blk = work + (max(nloc, 1) - 1) * slide
     upload = _Uploader(device, (nt, nv, npe_blk, nro))
 
     def load(i):
         """Disk window -> device (loader thread)."""
-        pe0 = z0s[i] * slide
+        pe0 = (z0s[i] + z_lo) * slide
+        if nloc == 0:  # a rank with no frame of the blocks: it only gathers
+            return torch.zeros((nt, nv, 0, nro), dtype=torch.complex64, device=device), None, pe0
         blk = ra_read_profiles(path, pe0, npe_blk)      # (nc, nt, nro, npe)
         if basis is not None:
             # per-repetition projection onto the global virtual-coil basis

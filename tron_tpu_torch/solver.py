@@ -16,9 +16,15 @@ operator modes, each a true adjoint pair or its normal operator:
 
 The loop stops where the JAX package's `lax.while_loop` stops
 (`rs > rtol^2 <b, b>` and k < niter); its stop test reads one device
-scalar on the host, one synchronisation per iteration.  The multi-device
-arguments (``reduce_axes``, ``spoke_axis``, ``npe_total``, ``sample_mask``)
-are still to port (ROADMAP A17) and raise.
+scalar on the host, one synchronisation per iteration.
+
+Across ranks (`parallel/`): with coils sharded the three inner products of an
+iteration are summed over each axis of ``reduce_axes``; with spokes sharded
+(``spoke_axis``) every CG vector is replicated and A^H W (.) is summed over
+that axis.  An axis is a ``parallel.distributed.MeshAxis`` (the JAX package
+names the axis of the enclosing shard_map; here the handle carries the
+process group).  The stop test reads the reduced scalar, the same bits on
+every rank of the group, so all ranks leave the loop together.
 """
 
 from __future__ import annotations
@@ -31,21 +37,29 @@ import torch
 from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.nufft import nufft_adjoint, nufft_adjoint_exact, nufft_forward, sdc_weights
 from tron_tpu_torch.ops.degrid import lattice_radii
+from tron_tpu_torch.parallel.distributed import MeshAxis, psum
 
 
-def _multi_device_unported(npe_total=None, sample_mask=None, reduce_axes=(), spoke_axis=None):
-    if npe_total is not None or sample_mask is not None or reduce_axes or spoke_axis is not None:
-        raise NotImplementedError(
-            "multi-device CGNR (reduce_axes, spoke_axis, npe_total, sample_mask) is not "
-            "ported yet (ROADMAP A17)"
-        )
-
-
-def _weights(cfg: ReconConfig, nro: int, npe: int, device) -> torch.Tensor:
-    """Ram-Lak (or ideal) weights with readout 0 weighted out."""
+def _weights(
+    cfg: ReconConfig, nro: int, npe: int, device, sample_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Ram-Lak (or ideal) weights with readout 0 weighted out: the (nro,)
+    row, or with a 0/1 ``sample_mask`` per spoke the (npe_local, nro) table
+    that also weights a shard's padded spokes out."""
     w = sdc_weights(cfg, nro, npe, device).clone()
     w[0] = 0
+    if sample_mask is not None:
+        w = sample_mask.to(w.dtype)[:, None] * w
     return w
+
+
+def _check_axes(reduce_axes, spoke_axis) -> None:
+    for ax in (*reduce_axes, spoke_axis):
+        if ax is not None and not isinstance(ax, MeshAxis):
+            raise TypeError(f"a mesh axis is given as mesh.axis(name), a MeshAxis; got {ax!r}")
+    if spoke_axis is not None and any(ax.name == spoke_axis.name for ax in reduce_axes):
+        # image-domain vectors are already replicated along the spoke axis
+        raise ValueError(f"spoke_axis {spoke_axis.name!r} must not also be in reduce_axes")
 
 
 def toeplitz_fourier_kernel(
@@ -64,12 +78,16 @@ def toeplitz_fourier_kernel(
     ``method``: "nufft" grids the weights at doubled image size with the
     fast adjoint (the doubled-frequency identity holds only at gridos 2);
     "exact" sums the DTFT adjoint in chunks; "auto" is "nufft" when nro ==
-    nxos, else "exact".  Readout 0 is weighted out."""
-    _multi_device_unported(npe_total, sample_mask)
+    nxos, else "exact".  Readout 0 is weighted out.
+
+    ``npe_total`` and ``sample_mask`` serve spoke-sharded CGNR: ``angles``
+    then holds one shard's spokes, the weights come from the frame's spoke
+    count ``npe_total``, padded spokes (mask 0) weigh nothing, and the
+    shards' kernels sum to the frame's (t is linear over samples)."""
     npe = int(angles.shape[0])
     n = nro // 2
     nxos = int(n * cfg.gridos)
-    w2d = _weights(cfg, nro, npe, angles.device)[None, :].expand(npe, nro)
+    w2d = _weights(cfg, nro, npe_total or npe, angles.device, sample_mask).expand(npe, nro)
     if method == "auto":
         method = "nufft" if nro == nxos else "exact"
         if method == "exact" and n > 64:
@@ -130,10 +148,15 @@ def _operators(
     img_shape: tuple,
     w: torch.Tensor,
     operators: str,
+    spoke_axis: MeshAxis | None = None,
+    npe_total: int | None = None,
+    sample_mask: torch.Tensor | None = None,
 ):
     """(A^H W, A^H W A) of one operator mode, as two functions; ``w`` is the
-    (nro,) weight row.  ``operators`` as in cgnr_radial2d, "auto" resolved
-    by the device of ``w``."""
+    (nro,) weight row, or a shard's (npe, nro) table.  ``operators`` as in
+    cgnr_radial2d, "auto" resolved by the device of ``w``.  With
+    ``spoke_axis`` the spokes are one shard's and A^H W (.) is summed over
+    the axis (with "toeplitz": the multiplier, once)."""
     npe = int(angles.shape[0])
     nxos = int((nro // 2) * cfg.gridos)
     if operators == "auto" and cfg.toeplitz:
@@ -154,7 +177,8 @@ def _operators(
                 out = nufft_adjoint(w * y, angles, cfg, apply_sdc=False)
             else:
                 out = nufft_adjoint_exact(w * y, angles, cfg)
-            return out * (nxos * npe)  # undo the gridder's reference scale
+            # undo the gridder's reference scale (this shard's 1/(nxos*npe))
+            return psum(out * (nxos * npe), spoke_axis)
 
     elif operators == "transpose":
         # the plain forward (backend "jnp"), whose autograd adjoint exists
@@ -166,13 +190,17 @@ def _operators(
         adj = _transpose_adjoint(fwd, img_shape, w.dtype, w.device)
 
         def AHW(y):
-            return adj(w * y)
+            return psum(adj(w * y), spoke_axis)
 
     else:
         raise ValueError(f"unknown operators {operators!r}")
 
     if toeplitz:
-        mult = toeplitz_fourier_kernel(angles, cfg, nro)
+        mult = toeplitz_fourier_kernel(
+            angles, cfg, nro, npe_total=npe_total, sample_mask=sample_mask
+        )
+        # after this one sum the iterations need no collective
+        mult = psum(mult, spoke_axis)
         return AHW, lambda x: toeplitz_apply(x, mult)
     return AHW, lambda x: AHW(fwd(x))
 
@@ -195,19 +223,31 @@ def cgnr_radial2d(
     of the plain forward), "toeplitz" (Toeplitz normal operator; the right
     side A^H W b still uses the fast adjoint once), or "auto": "toeplitz"
     when cfg.toeplitz is set, else "pair" for a CUDA tensor and "transpose"
-    for a CPU tensor, as JAX picks by platform."""
-    _multi_device_unported(npe_total, sample_mask, reduce_axes, spoke_axis)
+    for a CPU tensor, as JAX picks by platform.
+
+    ``reduce_axes``: the mesh axes the channels are sharded over; the inner
+    products are summed over each, so every shard steps with the global
+    alpha and beta.  ``spoke_axis``, ``npe_total``, ``sample_mask``:
+    spoke-sharded CGNR (`parallel/spoke.py`): ``data`` and ``angles`` hold
+    one shard's spokes, the weights come from the frame's ``npe_total``, and
+    ``sample_mask`` (0/1 per local spoke) weights the shard's padding out."""
+    _check_axes(reduce_axes, spoke_axis)
     niter = cfg.niter if niter is None else niter
     npe, nro = data.shape[-2:]
     n = nro // 2
     img_shape = tuple(data.shape[:-2]) + (n, n)
     # readout 0 (one sample per spoke at the highest |k|, never gridded) is
     # weighted out in every mode, so all modes solve one problem
-    w = _weights(cfg, nro, npe, data.device).to(data.dtype)
-    AHW, normal = _operators(angles, cfg, nro, img_shape, w, operators)
+    w = _weights(cfg, nro, npe_total or npe, data.device, sample_mask).to(data.dtype)
+    AHW, normal = _operators(
+        angles, cfg, nro, img_shape, w, operators, spoke_axis, npe_total, sample_mask
+    )
 
     def inner(a, bb):
-        return torch.sum(torch.conj(a) * bb).real
+        v = torch.sum(torch.conj(a) * bb).real
+        for ax in reduce_axes:
+            v = psum(v, ax)
+        return v
 
     b = AHW(data)
     thresh = rtol * rtol * inner(b, b)
