@@ -79,19 +79,35 @@ Phases, one line each (any failure raises and exits non-zero):
  26 clishard tron-torch --shard, --shard-spokes and --stream --shard on the
              1479-spoke cut, in this process and as two ranks on the card, each
              against the unsharded file
+ 27 classes  tools.paper_plots.measure_timings on the paper's four dataset
+             classes at full size (whole-body, swallowing, linear phantom,
+             optic nerve): s per series on the host clock and CUDA events,
+             Msamples/s, speed-up over the paper GPU's published s, launches;
+             each class's first frame vs the plain operators
+ 28 floor    tools.floor_dissect: the per-run wall of the three small classes
+             split into round trip, slope and residual, with the card's busy
+             time from the profiler and the image readback
+ 29 incdis   tools.inc_dissect on the 956 whole-body frames: the incremental
+             path, its gridding alone and its epilogue alone
+ 30 runme    scripts/torch_RUNME1, torch_RUNME2 and torch_RUNME3
+             (TRON_FULLSCALE=0), each command a process of its own: exit
+             codes, the files' dims as the JAX recipes give them, the
+             recipes' metric and comparison tables
 Then the kernel table as one JSON line (each kernel's launches on its main
-path, error, ms, the passes' device ms, plain ms, bound and library call), the
-nvidia-smi line, and
-the result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+paths, the recipes' processes of phase 30 left uncounted; error, ms, the
+passes' device ms, plain ms, bound and library call), the nvidia-smi line,
+and the result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import itertools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -115,8 +131,12 @@ FP32_FLOPS = 67e12                    # H100 SXM peak fp32 rate outside the tens
 KB_FLOPS = 42                         # one kb_weight: 17 FMA (2 each) + sqrt, div, 6 more
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f"[{phase}] {msg} (+{time.perf_counter() - T_START:.0f} s)", flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1556,7 +1576,160 @@ def main() -> int:
             require(e <= (1e-5 if "--shard-spokes" in extra else 1e-6),
                     f"tron-torch {name} in 2 ranks: nrmse {e:.3e}")
             os.remove(path("out.ra"))
-    log("paths", f"launches of phases 20-26 by kernel: {new_counts}; at nxos 128 (B2's contract): "
+    # -- 27 classes: the paper's four dataset classes at full size -------------
+    # (late in this process its host-bound times run slower than the tools
+    # alone in a fresh process, which PERF.md reports)
+    from tron_tpu_torch.tools import floor_dissect, inc_dissect, paper_plots
+
+    t27 = time.perf_counter()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh_counts()
+        t0 = time.perf_counter()
+        rows = paper_plots.measure_timings(os.path.join(tmp, "timings.csv"), dev)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "timings.csv"), newline="") as fh:
+            written = list(csv.DictReader(fh))
+    counted({"grid_radial2d": 5 * sum(r["frames"] for r in rows)}, "paper_plots.measure_timings")
+    require([r["dataset"] for r in written] == [d[0] for d in paper_plots.DATASETS]
+            and all(r["card"] == torch.cuda.get_device_name(0) for r in written),
+            f"timings.csv rows {written}")
+    # each class's first frame, on the data measure_timings drew, against the
+    # plain operators (comparison launches: not counted)
+    crng = np.random.default_rng(0)
+    for dataset, r in zip(paper_plots.DATASETS, rows):
+        ccfg, cwork, cslide, cnz, cdata = paper_plots.class_case(dataset, crng)
+        win = torch.from_numpy(np.ascontiguousarray(cdata[:, :cwork])).to(dev)
+        del cdata
+        e = nrmse(recon_frames(win, ccfg, cwork, cslide, 1),
+                  recon_frames(win, dataclasses.replace(ccfg, backend="jnp"), cwork, cslide, 1))
+        log("classes", f"{r['dataset']} ({dataset[2]} coils, nro {dataset[3]}, {cwork} spokes per "
+            f"frame, {r['frames']} frames): {r['card_s']:.6f} s host clock, {r['event_s']:.6f} s CUDA "
+            f"events = {r['card_msamples_per_s']:.1f} Msamples/s, {r['speedup']:.2f}x the paper GPU's "
+            f"{r['ref_gpu_s']} s; {r['grid_launches']} launches of grid_radial2d; frame 0 vs the "
+            f"plain operators nrmse {e:.3e} (tol {KERNEL_TOL}) on {card}")
+        require(r["grid_launches"] == 5 * cnz and r["frames"] == cnz,
+                f"{r['dataset']}: {r['grid_launches']} launches for {cnz} frames")
+        require(e <= KERNEL_TOL and np.isfinite(r["checksum"]) and r["checksum"] > 0,
+                f"{r['dataset']}: frame 0 nrmse {e:.3e}, checksum {r['checksum']}")
+    log("classes", f"paper_plots.measure_timings: 4 classes in {wall:.2f} s host wall (data "
+        f"drawn and uploaded included)")
+    del win
+
+    # -- 28 floor: the per-run constant of the three small classes --------------
+    fresh_counts()
+    fl = floor_dissect.main(["--device", "0"])
+    # per class: 7 + 63 recons of the slope, 1 profiled, 7 + 1 of the readback
+    require([r["frames"] for r in fl["classes"]] == [17, 1, 137], f"floor frames {fl}")
+    counted({"grid_radial2d": 79 * (17 + 1 + 137)}, "floor_dissect")
+    for r in fl["classes"]:
+        log("floor", f"{r['class']} ({r['frames']} frames): wall {r['wall_ms']} ms = rtt "
+            f"{r['rtt_ms']} + device (slope) {r['device_ms']} + residual {r['residual_ms']}; card busy "
+            f"{r['busy_ms']} ms ({r['busy_pct']} % of the wall); {r['e2e_msamples_per_s']} Msamples/s "
+            f"end to end, {r['device_msamples_per_s']} by the slope; image readback +{r['d2h_ms']} ms "
+            f"for {r['d2h_mb']} MB on {card}")
+        require(r["wall_ms"] > 0 and r["busy_ms"] is not None and 0 < r["busy_ms"] <= r["wall_ms"],
+                f"floor {r['class']}: {r}")
+
+    # -- 29 incdis: the incremental headline split, 956 frames ------------------
+    fresh_counts()
+    os.environ.update(DISSECT_FRAMES=str(NZ), DISSECT_NRO=str(NRO))
+    try:
+        inc = inc_dissect.main(["--device", "0"])
+    finally:
+        for k in ("DISSECT_FRAMES", "DISSECT_NRO"):
+            os.environ.pop(k)
+    counted({"grid_radial2d": 10 * NZ}, "inc_dissect")   # full and grid_only, 5 runs each
+    log("incdis", f"{NZ} whole-body frames: full {inc['full_s']:.6f} s ({inc['full_event_s']:.6f} s "
+        f"CUDA events, {inc['full_msps']:.1f} Msamples/s), grid_only {inc['grid_only_s']:.6f} s "
+        f"({inc['grid_only_event_s']:.6f}), epi_only {inc['epi_only_s']:.6f} s "
+        f"({inc['epi_only_event_s']:.6f}) on {card}")
+    require(inc["frames"] == NZ and all(np.isfinite(inc[k]) and inc[k] > 0 for k in inc
+                                        if k.endswith("_s")), f"inc_dissect {inc}")
+
+    # -- 30 runme: the three recipes, each command a process of its own --------
+    from tron_tpu_torch.io import ra_query
+
+    def start_recipe(name, env, logdir):
+        """sh scripts/NAME in a session of its own (each step of it a
+        process), its output to a file in logdir."""
+        with open(os.path.join(logdir, name + ".log"), "w") as out:
+            p = subprocess.Popen(["sh", os.path.join(ROOT, "scripts", name)], env=env, text=True,
+                                 stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+        return {"name": name, "p": p, "t0": time.perf_counter()}
+
+    def recipe_done(run, logdir):
+        """The recipe has exited: it must have exited 0."""
+        wall = time.perf_counter() - run["t0"]
+        rc = run["p"].returncode
+        with open(os.path.join(logdir, run["name"] + ".log")) as fh:
+            so = fh.read()
+        require(rc == 0, f"{run['name']}: exit {rc}\n{so[-6000:]}")
+        elapsed = [float(m) for m in re.findall(r"^elapsed: ([0-9.]+) s", so, re.M)]
+        log("runme", f"sh scripts/{run['name']}{run.get('note', '')}: exit {rc}, {wall:.2f} s host "
+            f"wall" + (f"; its timed recons {elapsed} s" if elapsed else "") + f" on {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bindir, out = os.path.join(tmp, "bin"), os.path.join(tmp, "out")
+        os.mkdir(bindir)
+        with open(os.path.join(bindir, "python"), "w") as fh:  # the recipes' `python` is this one
+            fh.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        os.chmod(os.path.join(bindir, "python"), 0o755)
+        env = dict(os.environ, PATH=f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}",
+                   TRON_OUT=out)
+        t30 = time.perf_counter()
+        # RUNME2 beside RUNME1, then RUNME3 (which reads RUNME1's file); every
+        # recipe's session is killed on the phase's time limit or a failure
+        running = [start_recipe("torch_RUNME2_compare_degrid.sh", env, tmp),
+                   start_recipe("torch_RUNME1_tron_degrid_phantom.sh", env, tmp)]
+        try:
+            while running:
+                require(time.perf_counter() - t30 < 900, f"recipes still running: {running}")
+                for run in [r for r in running if r["p"].poll() is not None]:
+                    running.remove(run)
+                    recipe_done(run, tmp)
+                    if run["name"].startswith("torch_RUNME1"):
+                        running.append(start_recipe("torch_RUNME3_tron_grid_all.sh",
+                                                    dict(env, TRON_FULLSCALE="0"), tmp))
+                        running[-1]["note"] = " (TRON_FULLSCALE=0)"
+                time.sleep(0.2)
+        finally:
+            for run in running:
+                if run["p"].poll() is None:
+                    os.killpg(run["p"].pid, signal.SIGKILL)
+                    run["p"].wait()
+        log("runme", f"the three recipes, RUNME2 beside RUNME1 then RUNME3: "
+            f"{time.perf_counter() - t30:.2f} s host wall; phases 27-30 "
+            f"{time.perf_counter() - t27:.2f} s")
+        want = {  # the dims of the JAX recipes' files: (nc, nt, nro, npe1, nz), (1, nt, n, n, nz)
+            "shepplogan.ra": (1, 1, 256, 256, 1),
+            "sl_data_tron.ra": (1, 1, 512, 512, 1),
+            "sl_img_tron.ra": (1, 1, 256, 256, 1),
+            "ga_multicoil.ra": (6, 1, 512, 1479, 1),
+            "ga_img_tron.ra": (1, 1, 256, 256, 61),
+            "optic_nerve.ra": (4, 1, 256, 2176, 1),
+            "img_on_tron.ra": (1, 1, 128, 128, 17),
+            "swallowing.ra": (4, 1, 256, 3000, 1),
+            "img_sw_tron.ra": (1, 1, 128, 128, 137),
+        }
+        got = {f: tuple(ra_query(os.path.join(out, f)).dims) for f in want}
+        log("runme", f"files and dims: {got}")
+        require(got == want, f"recipe outputs {got}, expected {want}")
+        for f in ("sl_img_tron.ra", "ga_img_tron.ra", "img_on_tron.ra", "img_sw_tron.ra"):
+            require(bool(np.isfinite(ra_read(os.path.join(out, f))).all()), f"{f} not finite")
+        with open(os.path.join(out, "dataset_metrics.csv"), newline="") as fh:
+            metrics = list(csv.DictReader(fh))
+        with open(os.path.join(out, "compare_n64_npe128.csv"), newline="") as fh:
+            compare = {r["method"]: r for r in csv.DictReader(fh)}
+        log("runme", f"dataset_metrics.csv: {[(r['label'], r['frame'], r['ssim_vs_xla']) for r in metrics]}; "
+            f"compare_recon --golden: nrmse vs the oracle "
+            f"{ {k: v['nrmse_vs_ref'] for k, v in compare.items()} }")
+        require([(r["label"], r["frame"]) for r in metrics]
+                == [("optic_nerve", "0"), ("optic_nerve", "16"), ("swallowing", "0"),
+                    ("swallowing", "60"), ("swallowing", "136")], f"dataset_metrics rows {metrics}")
+        require(all(float(r["ssim_vs_xla"]) > 0.999 for r in metrics), "kernel vs plain ssim")
+        require(set(compare) == {"tron-jnp", "tron-pallas", "oracle"}, f"compare rows {compare}")
+    log("paths", f"launches of phases 20-29 by kernel: {new_counts}; at nxos 128 (B2's contract): "
         f"{b2_launches}")
 
     g_bound, g_by = grid_bound(wb_planes, wb_ang, 512)

@@ -3,7 +3,7 @@
 RUNME2/RUNME4-7 MATLAB scripts): reconstruct the same dataset with several
 methods, report NMSE/RMSE/SSIM tables, persist CSV and figures.
 
-    python -m tron_tpu_torch.tools.compare_recon [--n 64] [--npe 128] [--out output/]
+    python -m tron_tpu_torch.tools.compare_recon [--n 64] [--npe 128] [--out output/torch/]
 
 Methods compared:
   * tron-jnp     the plain torch dense gridder (backend "jnp")
@@ -15,10 +15,13 @@ Methods compared:
 All methods run in this process on one device (`--device N`, or `--device
 cpu`); the method names and the CSV columns are those of the JAX script.
 On the card, times are host wall clock around a synchronised second call.
+Figures are drawn where matplotlib is installed, and left out (with a
+printed note) where it is not, as on the card's machine.
 """
 
 import argparse
 import csv
+import importlib.util
 import os
 import time
 
@@ -28,7 +31,7 @@ def parse_args(argv=None):
     p.add_argument("--n", type=int, default=64)
     p.add_argument("--npe", type=int, default=128)
     p.add_argument("--golden", action="store_true")
-    p.add_argument("--out", default="output")
+    p.add_argument("--out", default="output/torch")
     p.add_argument("--skip-oracle", action="store_true")
     p.add_argument("--skip-pallas", action="store_true")
     p.add_argument("--device", default="0", help="CUDA device index, or 'cpu'")
@@ -42,7 +45,7 @@ def main(argv=None):
     import torch
 
     from tron_tpu_torch.config import AngleScheme, ReconConfig
-    from tron_tpu_torch.device import resolve_device
+    from tron_tpu_torch.device import parse_device
     from tron_tpu_torch.metrics import nmse, nrmse, ssim
     from tron_tpu_torch.nufft import nufft_adjoint, nufft_forward
     from tron_tpu_torch.oracle import oracle_adjoint_recon
@@ -51,7 +54,7 @@ def main(argv=None):
     from tron_tpu_torch.viz import compare as viz_compare
     from tron_tpu_torch.viz import mosaic
 
-    dev = torch.device("cpu") if args.device == "cpu" else resolve_device(int(args.device))
+    dev = parse_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     n, npe = args.n, args.npe
     scheme = AngleScheme.GOLDEN if args.golden else AngleScheme.LINEAR_HALF
@@ -113,6 +116,9 @@ def main(argv=None):
         wtr.writerows(rows)
     print(f"# wrote {csv_path}")
 
+    if importlib.util.find_spec("matplotlib") is None:
+        print("# figures left out: matplotlib is not installed")
+        return rows
     names = list(recons)
     mosaic(
         np.stack([np.abs(recons[k]) for k in names]),

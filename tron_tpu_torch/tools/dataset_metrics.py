@@ -32,7 +32,7 @@ def main(argv=None):
     p.add_argument("-G", dest="golden", action="store_true")
     p.add_argument("-u", dest="undersamp", type=float, default=1.0)
     p.add_argument("-d", dest="slide", type=int, default=0)
-    p.add_argument("--csv", default="output/dataset_metrics.csv")
+    p.add_argument("--csv", default="output/torch/dataset_metrics.csv")
     p.add_argument("--frames", default="0,-1", help="comma list; -1 = last")
     p.add_argument("--label", default=None)
     p.add_argument(
@@ -48,7 +48,7 @@ def main(argv=None):
     import torch
 
     from tron_tpu_torch.config import ReconConfig
-    from tron_tpu_torch.device import resolve_device
+    from tron_tpu_torch.device import parse_device
     from tron_tpu_torch.io import ra_query, ra_read
     from tron_tpu_torch.io.native import ra_read_profiles
     from tron_tpu_torch.metrics import nmse, ssim
@@ -57,7 +57,7 @@ def main(argv=None):
     from tron_tpu_torch.recon import reconstruct_frame
     from tron_tpu_torch.trajectory import spoke_angles
 
-    dev = torch.device("cpu") if args.device == "cpu" else resolve_device(int(args.device))
+    dev = parse_device(args.device)
     rec = ra_read(args.img)  # (1, nt, nx, ny, nz)
     nz = rec.shape[-1]
     n = rec.shape[2]

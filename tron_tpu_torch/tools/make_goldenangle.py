@@ -29,13 +29,13 @@ def main(argv=None):
     import torch
 
     from tron_tpu_torch.config import AngleScheme, ReconConfig
-    from tron_tpu_torch.device import resolve_device
+    from tron_tpu_torch.device import parse_device
     from tron_tpu_torch.io import ra_write
     from tron_tpu_torch.nufft import nufft_forward
     from tron_tpu_torch.phantom import birdcage_sensitivities, shepp_logan
     from tron_tpu_torch.trajectory import spoke_angles
 
-    device = torch.device("cpu") if args.device == "cpu" else resolve_device(int(args.device))
+    device = parse_device(args.device)
     n = args.nro // 2
     coilimg = torch.from_numpy(birdcage_sensitivities(n, args.nc) * shepp_logan(n)[None])
     coilimg = coilimg.to(device)  # (nc, n, n)

@@ -35,6 +35,18 @@ def modang(x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < 0, y + two_pi, y)
 
 
+def minangulardist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Minimum angular distance treating a and a+pi as equivalent
+    (`src/tron.cu:380-388`; defined but unused there)."""
+    pi = _f32(math.pi, a.device)
+    two_pi = _f32(TWO_PI, a.device)
+    d1 = torch.abs(modang(a - b))
+    d2 = torch.abs(modang(a + pi) - b)
+    d3 = two_pi - d1
+    d4 = two_pi - d2
+    return torch.minimum(torch.minimum(d1, d2), torch.minimum(d3, d4))
+
+
 def spoke_angles(
     npe: int,
     scheme: str,
@@ -79,3 +91,11 @@ def sample_radii(nro: int, nxos: int, device=None) -> torch.Tensor:
     units: ro -> (ro/nro - 1/2) * nxos (`src/tron.cu:554, 560-561`)."""
     ro = torch.arange(nro, dtype=torch.float32, device=device)
     return (ro / nro - 0.5) * nxos
+
+
+def grid_radius_to_ro(r: torch.Tensor, nro: int, nxos: int) -> torch.Tensor:
+    """Readout index holding the sample at integer grid radius r:
+    trunc(r*nro/nxos) + nro/2 with C truncation (`src/tron.cu:517`), the
+    product in float32; the identity map + nro/2 when nxos == nro."""
+    ridx = torch.trunc(r.to(torch.float32) * _f32(nro / nxos, r.device)).to(torch.int32)
+    return ridx + nro // 2
