@@ -6,13 +6,16 @@
 Phases, one line each (any failure raises and exits non-zero):
   1 env      card name and power limit, torch and CUDA versions
   2 build    nvcc builds csrc/*.cu for sm_90a into build/tron_tpu_torch/;
-             ptxas registers and spills per kernel; the library's SASS holds
-             tensor-core MMAs in B5's contraction and bulk copies in B4's
+             ptxas registers and spills per kernel and precision class; the
+             library's SASS holds tensor-core MMAs in B5's contraction (bf16
+             at the bf16 classes, TF32 at float32) and bulk copies in B4's
   3 kernel   the CUDA gridding kernel (the tile kernel) vs its plain torch
              version on the card
   4 main     whole-body golden-angle sliding-window recon (6 coils, nro 512,
              204 spokes per frame, slide 21, 956 frames of 256^2) through
-             recon_radial2d, direct and incremental, with launch counts
+             recon_radial2d at the default class (bfloat16, as `tron -a -G
+             -u 0.4 -d 21`), direct and incremental, with launch counts;
+             frames 0-2 vs the plain version at bfloat16 and vs float32
   5 golden   the committed JAX-computed golden images
   6 cli      tron-torch -a -G -u 0.4 -d 21 on a .ra fixture
   7 timing   throughput (CUDA events), kernel vs plain ms per frame and the
@@ -46,8 +49,10 @@ Phases, one line each (any failure raises and exits non-zero):
              by kernel and the host wall from file to file; then its stages
              alone and the card's busy share over one profiled run
  19 kbench   python -m tron_tpu_torch.tools.kbench: default, --no-windowed,
-             --batched and --op degrid, each with --check, at whole-body;
-             each one's device time per frame by kernel in the profiler
+             --batched and --op degrid (bfloat16, the default --dtype), and
+             default and --batched at --dtype float32, each with --check, at
+             whole-body; each one's device time per frame by kernel in the
+             profiler
  20 koosh    -3 stack of stars at whole-body width (6 coils, nro 512, 816 spokes,
              -u 0.4: 4 in-plane frames of 204; 32 kz encodings; 642 MB) through
              recon_radial2d: adjoint (128 images) and forward (32 slices of
@@ -93,10 +98,21 @@ Phases, one line each (any failure raises and exits non-zero):
              (TRON_FULLSCALE=0), each command a process of its own: exit
              codes, the files' dims as the JAX recipes give them, the
              recipes' metric and comparison tables
+ 31 precision the four precision classes at whole-body width (6 coils,
+             nro 512, 204 spokes, nxos 512) in B1, B5, B4 and B3 (kw 2 and
+             4), and B2's rule on B1's kernel at nxos 128: each kernel vs its
+             plain version at the same class on the card, its error against
+             the float32 plain version beside the plain version's own, a
+             repeat bitwise, B2's and B4's class rules, device ms per class
+Phases whose references are fp32 (the JAX goldens, the forward, CGNR and
+solver checks, the -3 forward, the dot tests, the classes' frame 0) pin
+matmul_dtype="float32"; the CLI phases compare like with like.
 Then the kernel table as one JSON line (each kernel's launches on its main
 paths, the recipes' processes of phase 30 left uncounted; error, ms, the
-passes' device ms, plain ms, bound and library call), the nvidia-smi line,
-and the result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+passes' device ms, plain ms, bound and library call, and per class the
+device ms, the error against the plain version and the bound), the
+nvidia-smi line, and the result line {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -119,6 +135,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 NC, NRO, SLIDE, NZ = 6, 512, 21, 956  # whole-body class (bench.py:168-174)
 KERNEL_TOL = 1e-5                     # kernel vs plain, NRMSE (fp32 sums in two orders)
+CLASSES = ("bfloat16", "bf16x2", "bf16x3", "float32")  # precision classes (ops/precision.py)
 SEG_TOL = 1e-6                        # B4 vs B1: B1's fp32 terms, regrouped at work items
 INC_TOL = 1e-4                        # incremental vs direct worst frame (bench.py:266)
 CG_TOL = 1e-4                         # CGNR, kernels vs plain operators (tests/test_torch_solver.py)
@@ -128,6 +145,8 @@ NF = 32                               # forward frames
 CG_WALL = 120.0                       # s; above it the CGNR path takes the first 128 frames
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM peak device-memory rate
 FP32_FLOPS = 67e12                    # H100 SXM peak fp32 rate outside the tensor cores
+BF16_TC_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core rate
+TF32_TC_FLOPS = 495e12                # H100 SXM dense TF32 tensor-core rate
 KB_FLOPS = 42                         # one kb_weight: 17 FMA (2 each) + sqrt, div, 6 more
 
 
@@ -159,6 +178,8 @@ def main() -> int:
     from tron_tpu_torch.config import ReconConfig
     from tron_tpu_torch.kernels.kb import kb_beta
     from tron_tpu_torch.ops import grid_cuda
+    from tron_tpu_torch import recon as recon_mod
+    from tron_tpu_torch.nufft import _adjoint_epilogue, sdc_weights
     from tron_tpu_torch.ops.grid import grid_radial2d as grid_dense
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_plain
     from tron_tpu_torch.recon import (
@@ -193,7 +214,8 @@ def main() -> int:
     # channel block (12) and the instantiations that spill, from ptxas's -v
     # lines; an instantiation is named by its channel block KP (/V/MAXOFF, the
     # degrid kernel's floats per lane and the neighbours per axis it holds: 8
-    # for kw < 4, 14 beyond) and I/L (integer radii or the exact lattice)
+    # for kw < 4, 14 beyond), its precision class, and I/L (integer radii or
+    # the exact lattice) with +r where pass 1 rounds the weights as torch does
     fam, name = {}, None
     kernel_re = re.compile(
         r"_(grid_radial2d|grid_radial2d_batched|grid_seg_radial2d|degrid_radial2d)_cu_\w*?"
@@ -207,8 +229,11 @@ def main() -> int:
             flags = [v for t, v in args if t == "b"]
             key = f"{m.group(1)}.cu:{m.group(2)}"
             inst = (ints[0] if ints else "") + (
-                "/" + "/".join(ints[1:]) if key.startswith("degrid") else "")
-            inst += "".join("L" if f == "1" else "I" for f in flags) or ("" if inst else "-")
+                "/" + "/".join(ints[1:3]) if key.startswith("degrid") else "")
+            if re.search(r"contract|mma|degrid", key):  # the class is the last int
+                inst += " " + CLASSES[int(ints[-1])]
+            inst += "".join("L" if f == "1" else "I" for f in flags[:1]) + (
+                "+r" if flags[1:] == ["1"] else "") or ("" if inst else "-")
             name = (key, inst)
         elif name and "spill stores" in ln:
             sp = re.search(r"(\d+) bytes spill stores", ln)
@@ -232,20 +257,29 @@ def main() -> int:
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(built.path)], capture_output=True, text=True,
                           check=True).stdout
-    ops, fn = {}, None
+    ops, hmma, fn = {}, {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : \S*?(grid_tile_(?:band|items|contract|mma|reduce)_kernel"
-                      r"|grid_seg_(?:list|contract)_kernel)", ln)
+                      r"|grid_seg_(?:list|contract)_kernel)(\S*)", ln)
         if "Function :" in ln:
             fn = m.group(1) if m else None
+            tmpl = re.findall(r"Li(\d+)E", m.group(2)) if m else []
+            mma_cls = CLASSES[int(tmpl[1])] if fn == "grid_tile_mma_kernel" else None
         elif fn:
             for op in ("HMMA", "UBLKCP", "SYNCS", "LDGSTS", "FFMA"):
                 if re.search(rf"\b{op}\b", ln):
                     ops.setdefault(fn, set()).add(op)
+            if mma_cls:  # B5's MMAs by class: HMMA.1688.F32.BF16 or .TF32
+                hmma.setdefault(mma_cls, set()).update(re.findall(r"HMMA\.[\w.]+", ln))
     log("build", "SASS opcodes per gridding kernel: "
         f"{ {k: sorted(v) for k, v in sorted(ops.items())} }")
     require("HMMA" in ops.get("grid_tile_mma_kernel", ()),
             "B5's contraction (grid_tile_mma_kernel) holds no tensor-core MMA (HMMA)")
+    log("build", f"B5's MMAs by class: { {k: sorted(v) for k, v in sorted(hmma.items())} }")
+    for c in CLASSES:
+        want = "TF32" if c == "float32" else "BF16"
+        require(any(want in op for op in hmma.get(c, ())),
+                f"B5's {c} contraction holds no {want} HMMA: {sorted(hmma.get(c, ()))}")
     require({"UBLKCP", "SYNCS"} <= ops.get("grid_seg_contract_kernel", set()),
             "B4's contraction (grid_seg_contract_kernel) holds no bulk copy (UBLKCP) on an mbarrier")
 
@@ -344,12 +378,38 @@ def main() -> int:
     worst = float((torch.linalg.vector_norm(b - a, dim=1) / torch.linalg.vector_norm(a, dim=1)).max())
     log("main", f"incremental vs direct worst-frame nrmse {worst:.3e} (tol {INC_TOL})")
     require(worst < INC_TOL, f"incremental vs direct {worst:.3e}")
+    # frames 0-2 against the plain version at the same class (the planes
+    # gridder at bfloat16, then the recon's own epilogue), and against the
+    # plain float32 recon for the class's own error
     d3 = torch.from_numpy(np.ascontiguousarray(host[:, : work + 2 * SLIDE])).to(dev)
-    plain3 = recon_frames(d3, dataclasses.replace(cfg, backend="jnp"), work, SLIDE, 3)
+    require(cfg.matmul_dtype == "bfloat16", f"the default class is {cfg.matmul_dtype}")
+
+    def plain_frames(data, c, nfr, slide):
+        """recon_frames' direct path with the plain planes gridder at c's class."""
+        nro = data.shape[-1]
+        nxos = int(nro // 2 * c.gridos)
+        b = kb_beta(c.kernwidth, c.gridos)
+        planes = grid_cuda.to_sample_planes(
+            data * sdc_weights(c, nro, work, data.device).to(data.dtype), nxos)
+        imgs = []
+        for z in range(nfr):
+            ang = spoke_angles(work, "golden", c.skip_angles + z * slide, device=dev)
+            kg = grid_radial2d_planes_plain(planes[z * slide: z * slide + work], ang, nxos,
+                                            c.kernwidth, b, matmul_dtype=c.matmul_dtype)
+            imgs.append(recon_mod._combine(_adjoint_epilogue(kg, nro // 2, c, b), c, None))
+        return torch.stack(imgs)
+
+    plain3 = plain_frames(d3, cfg, 3, SLIDE)
+    plain3_f32 = recon_frames(d3, dataclasses.replace(cfg, backend="jnp"), work, SLIDE, 3)
     for z in range(3):
         e = nrmse(outs["direct"][z], plain3[z].cpu())
-        log("main", f"frame {z} kernel recon vs plain-gridder recon on the card: nrmse {e:.3e}")
-        require(e <= KERNEL_TOL, f"frame {z} vs plain {e:.3e}")
+        e32 = nrmse(outs["direct"][z], plain3_f32[z].cpu())
+        own = nrmse(plain3[z], plain3_f32[z])
+        log("main", f"frame {z} kernel recon vs the plain version at bfloat16 on the card: nrmse "
+            f"{e:.3e} (tol {KERNEL_TOL}); vs the plain float32 recon {e32:.3e} (the plain "
+            f"version's own {own:.3e})")
+        require(e <= KERNEL_TOL, f"frame {z} vs plain at bfloat16 {e:.3e}")
+        require(0.5 * own <= e32 <= 2 * own, f"frame {z}: class error {e32:.3e}, plain's {own:.3e}")
 
     # -- 5 golden ------------------------------------------------------------
     g = np.load(os.path.join(ROOT, "tests", "data", "torch_port_golden.npz"))
@@ -357,7 +417,7 @@ def main() -> int:
     shape = tuple(int(s) for s in g["shape"])
     gin = (grng.standard_normal(shape) + 1j * grng.standard_normal(shape)).astype(np.complex64)
     gcfg = ReconConfig(golden_angle=True, data_undersamp=float(g["undersamp"]),
-                       prof_slide=int(g["slide"]), adjoint=True)
+                       prof_slide=int(g["slide"]), adjoint=True, matmul_dtype="float32")
     gout = recon_radial2d(gin, gcfg, device=dev)[:, 0]
     e = nrmse(np.abs(gout), g["images"])
     log("golden", f"kernel recon vs JAX golden {g['images'].shape}: nrmse {e:.3e} (tol 1e-5)")
@@ -584,7 +644,7 @@ def main() -> int:
     fimgs = (rng.standard_normal((NC, 1, n_img, n_img, NF), dtype=np.float32)
              + 1j * rng.standard_normal((NC, 1, n_img, n_img, NF), dtype=np.float32)
              ).astype(np.complex64)
-    fcfg = ReconConfig(golden_angle=True, data_undersamp=1.0)
+    fcfg = ReconConfig(golden_angle=True, data_undersamp=1.0, matmul_dtype="float32")
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
     t0 = time.perf_counter()
@@ -608,7 +668,7 @@ def main() -> int:
     require(e <= KERNEL_TOL, f"forward frame 0 vs plain {e:.3e}")
 
     # -- 12 CGNR main path ---------------------------------------------------
-    ccfg = dataclasses.replace(cfg, niter=NITER)
+    ccfg = dataclasses.replace(cfg, niter=NITER, matmul_dtype="float32")
     probe = np.ascontiguousarray(indata[..., : work + 7 * SLIDE])
     t0 = time.perf_counter()
     recon_radial2d(probe, ccfg, device=dev)
@@ -658,7 +718,7 @@ def main() -> int:
 
     ph = birdcage_sensitivities(n_img, NC) * shepp_logan(n_img)[None]
     pimg = torch.from_numpy(ph).to(dev)
-    scfg = ReconConfig(golden_angle=True)
+    scfg = ReconConfig(golden_angle=True, matmul_dtype="float32")
     sang = spoke_angles(work, "golden", 0, device=dev)
     pdata = nufft_forward(pimg, sang, scfg)
     e_adj = lmse(nufft_adjoint(pdata, sang, scfg).cpu().numpy(), ph)
@@ -714,7 +774,7 @@ def main() -> int:
     def dbare():
         code = built.lib.tron_degrid_radial2d_planes(
             kgp.data_ptr(), dct.data_ptr(), dst.data_ptr(), drad.data_ptr(), dout.data_ptr(),
-            work, NRO, NRO, 2 * NC, int(2 * kw) + 1, 0, kw, beta,
+            work, NRO, NRO, 2 * NC, int(2 * kw) + 1, 0, kw, beta, CLASSES.index("float32"),
             torch.cuda.current_stream().cuda_stream)
         _build.check(built.lib, code, "degrid_radial2d kernel")
 
@@ -741,44 +801,47 @@ def main() -> int:
         f"stop test each iteration) on {card}")
 
     # -- bounds: the least time the card could take for a kernel's work -----
-    def bound(nbytes: float, flops: float):
-        """max(bytes / memory rate, operations / fp32 rate), in ms, and which."""
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
+        """max(bytes / memory rate, operations / their peak rate), in ms, and which."""
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
         return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
-    def support(r, c, n):
-        """Grid points X in [-n/2, n-1-n/2] with |r*c - X| < kw, per sample."""
+    def support(r, c, n, kww=kw):
+        """Grid points X in [-n/2, n-1-n/2] with |r*c - X| < kww, per sample."""
         h = n // 2
         p = r * c
-        lo = torch.clamp(torch.floor(p - kw) + 1, min=-h)
-        hi = torch.clamp(torch.ceil(p + kw) - 1, max=n - 1 - h)
+        lo = torch.clamp(torch.floor(p - kww) + 1, min=-h)
+        hi = torch.clamp(torch.ceil(p + kww) - 1, max=n - 1 - h)
         return torch.clamp(hi - lo + 1, min=0)
 
-    def work_of(radii, angles, n, K):
-        """(flops, samples) of the terms this data needs: per sample with
-        terms, one KB per x- and y-neighbour, then per (sample, pixel) term
-        one weight product and K channel FMAs (2 flops each)."""
+    def work_of(radii, angles, n, K, passes=1, kww=kw):
+        """(term flops, KB flops) this data needs: per sample with terms, one
+        KB per x- and y-neighbour, then per (sample, pixel) term one weight
+        product and, per class pass, K channel FMAs (2 flops each)."""
         a = angles.double()[:, None]
-        cx = support(radii.double()[None, :], torch.cos(a), n)
-        cy = support(radii.double()[None, :], torch.sin(a), n)
+        cx = support(radii.double()[None, :], torch.cos(a), n, kww)
+        cy = support(radii.double()[None, :], torch.sin(a), n, kww)
         live = (cx > 0) & (cy > 0)
         terms = float((cx * cy).sum())
-        return terms * (2 * K + 1) + KB_FLOPS * float(((cx + cy) * live).sum())
+        return terms * (2 * K * passes + 1), KB_FLOPS * float(((cx + cy) * live).sum())
 
-    def grid_bound(planes, angles, nxos):
+    def grid_bound(planes, angles, nxos, passes=1, tc=None):
         """Gridding on integer radii: planes and angles in, grids out; row 0
-        is never gridded."""
+        is never gridded.  tc: the tensor-core rate the term products run at
+        (B5), where the KB weights stay on the fp32 units."""
         npe, nR, K = planes.shape
         radii = (torch.arange(nR, device=dev, dtype=torch.float64) - nxos // 2)[1:]
-        flops = work_of(radii, angles, nxos, K)
         nbytes = planes.numel() * 4 + angles.numel() * 4 + (K // 2) * nxos * nxos * 8
-        return bound(nbytes, flops)
+        terms, kb_ops = work_of(radii, angles, nxos, K, passes)
+        if tc is None:
+            return bound(nbytes, terms + kb_ops)
+        return max(bound(nbytes, kb_ops), bound(nbytes, terms, tc))
 
-    def degrid_bound(kgrid, angles, nro):
+    def degrid_bound(kgrid, angles, nro, passes=1, kww=kw):
         """Degridding, clip: grid and angles in (radius table included),
         samples out."""
         C, n, _ = kgrid.shape
-        flops = work_of(lattice_radii(nro, n, dev), angles, n, 2 * C)
+        flops = sum(work_of(lattice_radii(nro, n, dev), angles, n, 2 * C, passes, kww))
         nbytes = kgrid.numel() * 8 + angles.numel() * 4 + nro * 4 + C * angles.numel() * nro * 8
         return bound(nbytes, flops)
 
@@ -1022,7 +1085,10 @@ def main() -> int:
     for name, argv, kernel in (("default", [], "grid_radial2d"),
                                ("--no-windowed", ["--no-windowed"], "grid_seg_radial2d"),
                                ("--batched", ["--batched"], "grid_radial2d_batched"),
-                               ("--op degrid", ["--op", "degrid"], "degrid_radial2d")):
+                               ("--op degrid", ["--op", "degrid"], "degrid_radial2d"),
+                               ("--dtype float32", ["--dtype", "float32"], "grid_radial2d"),
+                               ("--batched --dtype float32", ["--batched", "--dtype", "float32"],
+                                "grid_radial2d_batched")):
         r = kbench.main([*argv, "--check"])
         kb[name] = r
         log("kbench", f"python -m tron_tpu_torch.tools.kbench {name} --check: kernel {r['kernel']}, "
@@ -1044,8 +1110,98 @@ def main() -> int:
             f"us, {len(per)} kernels; most: { {k[:48]: round(v, 2) for k, v in top} } on {card}")
         del kfn
 
+    # -- 31 precision: the four classes in every kernel, at whole-body width --
+    # (run here, after 19: late in this process, after the phases that open
+    # many profiler runs, the profiler lost device kernels of some calls)
+    from tron_tpu_torch.ops.precision import bf16
+
+    t31 = time.perf_counter()
+    passes_of = {"bfloat16": 1, "bf16x2": 2, "bf16x3": 3, "float32": 1}
+    deg_pass = re.compile(r"degrid_radial2d_kernel")
+    wb_dplanes = cgrid(NC, 512, 512)
+    kw4, b4 = 4.0, kb_beta(4.0, 2.0)
+    wb_dplanes4 = wb_dplanes * kb_unit(kw4, b4)
+    b2_planes, b2_ang = planes_case(128, 2, 12, 5)
+
+    def grid_case(planes, ang, nxos, **kw_):
+        """(kernel at a class, plain at a class) of one gridding kernel."""
+        windowed = kw_.get("windowed", True)
+
+        def kern(c):
+            return grid_cuda.grid_radial2d_planes(planes, ang, nxos, kw, beta, matmul_dtype=c, **kw_)
+
+        def plain(c):
+            cc, rounded = grid_cuda.gridder_class(nxos, c, windowed)
+            p = bf16(planes) if rounded else planes
+            if not windowed:
+                return grid_radial2d_planes_culled(p, ang, nxos, kw, beta, matmul_dtype=cc)
+            return grid_radial2d_planes_plain(p, ang, nxos, kw, beta, matmul_dtype=cc)
+
+        return kern, plain
+
+    def degrid_case(g, kww, bb):
+        return (lambda c: degrid_cuda.degrid_radial2d(g, dang, NRO, kww, bb, matmul_dtype=c,
+                                                      wrap=False),
+                lambda c: degrid_plain(g, dang, NRO, kww, bb, wrap=False, matmul_dtype=c))
+
+    prec_cases = {  # kernel row -> (kernel, plain, pass names, bound of one call's work)
+        "grid_radial2d": (*grid_case(wb_planes, wb_ang, 512), grid_pass,
+                          lambda p: grid_bound(wb_planes, wb_ang, 512, p)),
+        "grid_radial2d_batched": (*grid_case(wb_planes, wb_ang, 512, tuning=bt), grid_pass,
+                                  lambda p: grid_bound(wb_planes, wb_ang, 512, p, BF16_TC_FLOPS)),
+        "grid_seg_radial2d": (*grid_case(wb_planes, wb_ang, 512, windowed=False), grid_pass,
+                              lambda p: grid_bound(wb_planes, wb_ang, 512, p)),
+        "grid_radial2d (nxos 128)": (*grid_case(b2_planes, b2_ang, 128), grid_pass,
+                                     lambda p: grid_bound(b2_planes, b2_ang, 128, p)),
+        "degrid_radial2d": (*degrid_case(wb_dplanes, kw, beta), deg_pass,
+                            lambda p: degrid_bound(wb_dplanes, dang, NRO, p)),
+        "degrid_radial2d (kw 4)": (*degrid_case(wb_dplanes4, kw4, b4), deg_pass,
+                                   lambda p: degrid_bound(wb_dplanes4, dang, NRO, p, kww=kw4)),
+    }
+    prec = {}
+    for name, (kern_c, plain_c, rx, bound_c) in prec_cases.items():
+        outs_c, row = {}, {"err": {}, "err_f32": {}, "own_f32": {}, "ms": {}, "bound_ms": {}}
+        ref32 = plain_c("float32")
+        for c in CLASSES:
+            got, again = kern_c(c), kern_c(c)
+            want = plain_c(c)
+            torch.cuda.synchronize()
+            outs_c[c] = got
+            e, e32, own = nrmse(got, want), nrmse(got, ref32), nrmse(want, ref32)
+            dev_us = device_passes(lambda: kern_c(c), n=10, rx=rx)
+            require(len(dev_us) == (1 if rx is deg_pass else 4),
+                    f"{name} {c}: the profiler saw the passes {sorted(dev_us)}")
+            row["err"][c], row["err_f32"][c], row["own_f32"][c] = e, e32, own
+            row["ms"][c] = sum(dev_us.values()) / 1e3
+            if name == "grid_radial2d_batched" and c == "float32":  # 3xTF32
+                row["bound_ms"][c] = grid_bound(wb_planes, wb_ang, 512, 3, TF32_TC_FLOPS)[0]
+            else:
+                row["bound_ms"][c] = bound_c(passes_of[c])[0]
+            log("precision", f"{name} {c}: vs the plain version at {c} nrmse {e:.3e} (tol "
+                f"{KERNEL_TOL}); vs the plain float32 {e32:.3e} (the plain version's own "
+                f"{own:.3e}); repeat bitwise {torch.equal(got, again)}; device "
+                f"{1e3 * row['ms'][c]:.2f} us per call; bound {1e3 * row['bound_ms'][c]:.3f} us "
+                f"on {card}")
+            require(e <= KERNEL_TOL, f"{name} {c}: kernel vs plain at the class {e:.3e}")
+            require(torch.equal(got, again), f"{name} {c}: a repeat run is not bitwise equal")
+            if c == "float32":
+                require(e32 <= KERNEL_TOL, f"{name} float32: {e32:.3e}")
+            elif own > 0:
+                require(0.5 * own <= e32 <= 2 * own, f"{name} {c}: the class is not applied "
+                        f"(vs float32 {e32:.3e}, the plain version's own {own:.3e})")
+        # the classes JAX's dispatch runs as another (grid_pallas.py:735-738, :832-833)
+        if name == "grid_radial2d (nxos 128)":
+            for c in ("bf16x2", "bf16x3"):
+                require(torch.equal(outs_c[c], outs_c["float32"]), f"B2 {c} is not float32")
+        if name == "grid_seg_radial2d":
+            require(torch.equal(outs_c["bf16x2"], outs_c["bf16x3"]), "B4 bf16x2 is not bf16x3")
+        prec[name] = row
+        del outs_c, ref32
+    log("precision", f"B2's bf16x2 and bf16x3 are its float32 bit for bit, B4's bf16x2 its bf16x3; "
+        f"phase 31 in {time.perf_counter() - t31:.1f} s")
+    del wb_dplanes, wb_dplanes4
+
     # -- 20 koosh: the -3 stack of stars at whole-body width -------------------
-    from tron_tpu_torch import recon as recon_mod
     from tron_tpu_torch.ops import coil
 
     NPE2, KNPE1, KNZI = 32, 816, 4
@@ -1108,11 +1264,13 @@ def main() -> int:
     # transform, taken here on the host; twice through the plain gridder,
     # once through the kernel
     for b, backend in ((0, "jnp"), (17, "jnp"), (31, "auto")):
-        slb = np.ascontiguousarray(kz_slice(kT, b, True)[:, :, 0].transpose(2, 0, 1))
-        ref = recon_frames(torch.from_numpy(slb).to(dev), dataclasses.replace(kcfg2, backend=backend),
-                           work, work, KNZI)
+        slb = torch.from_numpy(np.ascontiguousarray(kz_slice(kT, b, True)[:, :, 0].transpose(2, 0, 1)))
+        if backend == "jnp":  # the plain gridder at the -3 path's class
+            ref = plain_frames(slb.to(dev), kcfg2, KNZI, work)
+        else:
+            ref = recon_frames(slb.to(dev), kcfg2, work, work, KNZI)
         e = nrmse(kout[b * KNZI:(b + 1) * KNZI, 0], ref.cpu())
-        how = "the plain gridder" if backend == "jnp" else "recon_frames (kernel)"
+        how = "the plain gridder at bfloat16" if backend == "jnp" else "recon_frames (kernel)"
         log("koosh", f"slice {b}: -3 output vs {how} on the host-side kz transform: nrmse {e:.3e} "
             f"(tol {KERNEL_TOL})")
         require(e <= KERNEL_TOL, f"koosh slice {b} vs {how}: {e:.3e}")
@@ -1136,7 +1294,7 @@ def main() -> int:
     kimgs = (rng.standard_normal((NC, 1, n_img, n_img, NPE2), dtype=np.float32)
              + 1j * rng.standard_normal((NC, 1, n_img, n_img, NPE2), dtype=np.float32)
              ).astype(np.complex64)
-    kfcfg = ReconConfig(golden_angle=True, data_undersamp=1.0, koosh=True)
+    kfcfg = ReconConfig(golden_angle=True, data_undersamp=1.0, koosh=True, matmul_dtype="float32")
     fresh_counts()
     t0 = time.perf_counter()
     kfout = recon_radial2d(kimgs, kfcfg, device=dev)
@@ -1165,7 +1323,7 @@ def main() -> int:
     # the forward's degridding call then carries 2*nc*nt = 24 real channels
     k2 = cgrid(NC, 2, NRO, 2 * work, 4).cpu().numpy()
     fresh_counts()
-    o2 = recon_radial2d(k2, kcfg, device=dev)
+    o2 = recon_radial2d(k2, dataclasses.replace(kcfg, matmul_dtype="float32"), device=dev)
     counted({"grid_radial2d": 4 * 2 * 2}, "koosh adjoint nt 2")
     p2 = recon_radial2d(k2, dataclasses.replace(kcfg, backend="jnp"), device=dev)
     e = nrmse(o2, p2)
@@ -1327,15 +1485,20 @@ def main() -> int:
         require(r4.shape == (1, 1, n_img, n_img, 1) and bool(np.isfinite(r4).all()), "cli3 -k 4 output")
         base_img = ra_read(path("img.ra"))
         for flags in (["--backend", "pallas"], ["--precision", "accurate"],
-                      ["--profile", path("prof")]):
+                      ["--profile", path("prof")], ["--dft-dot", "highest"]):
             fresh_counts()
             require(cli.main(["-a", "--scheme", "linear_half", *flags, "-g", "0", path("data.ra"),
                               path("o.ra")]) == 0, f"cli3 {flags}")
             counted({"grid_radial2d": 1}, f"cli3 {flags[0]}")
-            same = np.array_equal(ra_read(path("o.ra")), base_img)
+            img = ra_read(path("o.ra"))
+            same = np.array_equal(img, base_img)
+            e = nrmse(img, base_img)
             log("cli3", f"tron-torch -a --scheme linear_half {flags[0]} {flags[1] if flags[0] != '--profile' else 'DIR'}: "
-                f"bitwise equal to the default run: {same}")
-            require(same, f"cli3 {flags[0]} changed the images")
+                f"bitwise equal to the default run: {same}, nrmse {e:.3e}")
+            if flags[0] == "--precision":  # bf16x3 against the default's bfloat16
+                require(1e-5 < e < 1e-2, f"cli3 --precision accurate vs fast: nrmse {e:.3e}")
+            else:
+                require(same, f"cli3 {flags[0]} changed the images")
         traces = [f for f in os.listdir(path("prof")) if f.endswith(".trace.json")]
         require(len(traces) == 1, f"--profile wrote {traces}")
         with open(os.path.join(path("prof"), traces[0])) as f:
@@ -1601,7 +1764,7 @@ def main() -> int:
         ccfg, cwork, cslide, cnz, cdata = paper_plots.class_case(dataset, crng)
         win = torch.from_numpy(np.ascontiguousarray(cdata[:, :cwork])).to(dev)
         del cdata
-        e = nrmse(recon_frames(win, ccfg, cwork, cslide, 1),
+        e = nrmse(recon_frames(win, dataclasses.replace(ccfg, matmul_dtype="float32"), cwork, cslide, 1),
                   recon_frames(win, dataclasses.replace(ccfg, backend="jnp"), cwork, cslide, 1))
         log("classes", f"{r['dataset']} ({dataset[2]} coils, nro {dataset[3]}, {cwork} spokes per "
             f"frame, {r['frames']} frames): {r['card_s']:.6f} s host clock, {r['event_s']:.6f} s CUDA "
@@ -1750,10 +1913,19 @@ def main() -> int:
 
     require("jax" not in sys.modules, "JAX was imported")
     common = {"route": "cuda", "bound_ms": g_bound, "bound_by": g_by, "library_ms": None}
+
+    def by_class(name, suffix=""):
+        """Phase 31's device ms, error against the plain version and bound
+        per class of one kernel row."""
+        r = prec[name]
+        return {f"kernel_ms_by_class{suffix}": r["ms"], f"err_by_class{suffix}": r["err"],
+                f"bound_ms_by_class{suffix}": r["bound_ms"]}
+
     print(json.dumps({"kernels": [
         {
             "name": "grid_radial2d",
             "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
+            **by_class("grid_radial2d"),
             "replaces": "tron_tpu/ops/grid_pallas.py:933",
             "launches": launches + cg_grid + stream_b1 + new_counts["grid_radial2d"],
             "max_abs_err": err512,
@@ -1767,6 +1939,7 @@ def main() -> int:
             # on B1's kernel: its row is that kernel at nxos 128
             "name": "grid_radial2d (nxos 128)",
             "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
+            **by_class("grid_radial2d (nxos 128)"),
             "replaces": "tron_tpu/ops/grid_pallas.py:485",
             "launches": b2_launches,
             "max_abs_err": err128,
@@ -1779,6 +1952,7 @@ def main() -> int:
         {
             "name": "grid_radial2d_batched",
             "source": "tron_tpu_torch/csrc/grid_radial2d_batched.cu",
+            **by_class("grid_radial2d_batched"),
             "replaces": "tron_tpu/ops/grid_pallas.py:1161",
             "launches": stream_b5 + new_counts["grid_radial2d_batched"],
             "max_abs_err": bat_err,
@@ -1790,6 +1964,7 @@ def main() -> int:
         {
             "name": "grid_seg_radial2d",
             "source": "tron_tpu_torch/csrc/grid_seg_radial2d.cu",
+            **by_class("grid_seg_radial2d"),
             "replaces": "tron_tpu/ops/grid_pallas.py:366",
             "launches": kb["--no-windowed"]["launches"]["grid_seg_radial2d"],
             "max_abs_err": seg_err,
@@ -1801,6 +1976,8 @@ def main() -> int:
         {
             "name": "degrid_radial2d",
             "source": "tron_tpu_torch/csrc/degrid_radial2d.cu",
+            **by_class("degrid_radial2d"),
+            **by_class("degrid_radial2d (kw 4)", "_kw4"),
             "replaces": "tron_tpu/ops/degrid_pallas.py:44",
             "launches": fwd_launches + cg_degrid + new_counts["degrid_radial2d"],
             "max_abs_err": derr512,

@@ -12,10 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from tron_tpu_torch.config import KernelTuning
 from tron_tpu_torch.kernels.kb import kb_beta
 from tron_tpu_torch.ops import degrid_cuda, grid_cuda
 from tron_tpu_torch.ops.degrid import degrid_radial2d
-from tron_tpu_torch.ops.grid import grid_radial2d, grid_radial2d_planes_plain
+from tron_tpu_torch.ops.grid import (
+    grid_radial2d,
+    grid_radial2d_planes_culled,
+    grid_radial2d_planes_plain,
+)
+from tron_tpu_torch.ops.precision import MATMUL_DTYPES, bf16
 from tron_tpu_torch.trajectory import spoke_angles
 
 torch.set_num_threads(1)
@@ -57,6 +63,53 @@ def test_kernel_matches_plain(dev, nxos, C, npe, skip):
     assert got.shape == (C, nxos, nxos) and got.dtype == torch.complex64
     assert _nrmse(got, want) <= TOL
     assert torch.equal(got, again)  # fixed summation order, no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", MATMUL_DTYPES)
+@pytest.mark.parametrize("kernel", ["B1", "B5", "B4", "B2", "B3", "B3 kw 4"])
+def test_kernel_matches_plain_at_each_class(dev, kernel, matmul_dtype):
+    """Each kernel at each precision class vs its plain version at the same
+    class on the card: the bf16 classes round the same operands (the weights
+    bit for bit, kb.cuh), so only the fp32 sums' order differs; a bf16 class
+    is applied (its error against float32 is the plain version's, within
+    2x); repeats are bitwise."""
+    rng = np.random.default_rng(17)
+    ang = spoke_angles(48, "golden", 9000, device=dev)
+    if kernel.startswith("B3"):
+        kw = 4.0 if "kw 4" in kernel else KW
+        beta = kb_beta(kw, 2.0)
+        g = torch.from_numpy((rng.standard_normal((3, 256, 256)) + 1j * rng.standard_normal(
+            (3, 256, 256))).astype(np.complex64)).to(dev) * _kb_unit(kw, beta)
+
+        def kern(c):
+            return degrid_cuda.degrid_radial2d(g, ang, 256, kw, beta, matmul_dtype=c, wrap=False)
+
+        def plain(c):
+            return degrid_radial2d(g, ang, 256, kw, beta, wrap=False, matmul_dtype=c)
+    else:
+        nxos = 128 if kernel == "B2" else 256
+        planes = torch.from_numpy(rng.standard_normal((48, nxos, 6), dtype=np.float32)).to(dev)
+        windowed = kernel != "B4"
+        tuning = KernelTuning(batched=True) if kernel == "B5" else None
+
+        def kern(c):
+            return grid_cuda.grid_radial2d_planes(planes, ang, nxos, KW, BETA, matmul_dtype=c,
+                                                  windowed=windowed, tuning=tuning)
+
+        def plain(c):
+            cls, rounded = grid_cuda.gridder_class(nxos, c, windowed)
+            p = bf16(planes) if rounded else planes
+            f = grid_radial2d_planes_plain if windowed else grid_radial2d_planes_culled
+            return f(p, ang, nxos, KW, BETA, matmul_dtype=cls)
+    got, again = kern(matmul_dtype), kern(matmul_dtype)
+    want, ref32 = plain(matmul_dtype), plain("float32")
+    torch.cuda.synchronize()
+    assert _nrmse(got, want) <= TOL
+    assert torch.equal(got, again)
+    own = _nrmse(want, ref32)
+    if matmul_dtype != "float32" and own > 0:  # float32: B4's plain sums atomically
+        assert 0.5 * own <= _nrmse(got, ref32) <= 2 * own
 
 
 @pytest.mark.gpu
@@ -259,7 +312,7 @@ def test_streaming_matches_in_memory(dev, tmp_path, monkeypatch, mode):
     d = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     ra_write(d, tmp_path / "d.ra")
     cfg = ReconConfig(golden_angle=True, data_undersamp=0.4, prof_slide=21, adjoint=True,
-                      incremental=mode == "incremental")
+                      incremental=mode == "incremental", matmul_dtype="float32")
     if mode == "batched":
         monkeypatch.setenv("TRON_BATCHED", "1")
     grid_cuda.reset_launches()
@@ -340,7 +393,8 @@ def test_koosh_adjoint_on_the_card(dev, half):
     from tron_tpu_torch.recon import recon_radial2d
 
     d = _host_complex(1, (6, 2, 256, 200, 12))
-    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25)
+    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25,
+                      matmul_dtype="float32")
     grid_cuda.reset_launches()
     got = recon_radial2d(d, cfg, half_readback=half, device=dev)
     assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == (8 + 8) * 2 * 3  # the tail block overlaps
@@ -359,7 +413,7 @@ def test_koosh_forward_on_the_card(dev):
     from tron_tpu_torch.recon import recon_radial2d
 
     imgs = _host_complex(2, (6, 2, 64, 64, 5))
-    cfg = ReconConfig(koosh=True, golden_angle=True, data_undersamp=0.5)
+    cfg = ReconConfig(koosh=True, golden_angle=True, data_undersamp=0.5, matmul_dtype="float32")
     degrid_cuda.reset_launches()
     got = recon_radial2d(imgs, cfg, device=dev)
     assert degrid_cuda.LAUNCHES == 5
@@ -376,7 +430,8 @@ def test_koosh_streaming_on_the_card(dev, tmp_path):
 
     d = _host_complex(3, (4, 1, 128, 7 * 32 + 5, 10))
     ra_write(d, tmp_path / "d.ra")
-    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25)
+    cfg = ReconConfig(koosh=True, adjoint=True, golden_angle=True, data_undersamp=0.25,
+                      matmul_dtype="float32")
     mem = recon_radial2d(d, cfg, device=dev)
     got = recon_koosh_streaming(tmp_path / "d.ra", cfg, batch_frames=3, device=dev)
     assert got.shape == mem.shape == (70, 1, 64, 64)
@@ -402,7 +457,7 @@ def test_walsh_and_compress_on_the_card(dev, mode):
     cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
                       coil_combine="walsh" if "walsh" in mode else "sos",
                       coil_compress=3 if mode == "compress" else 0,
-                      incremental="incremental" in mode)
+                      incremental="incremental" in mode, matmul_dtype="float32")
     grid_cuda.reset_launches()
     got = recon_radial2d(d, cfg, device=dev)
     assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 4
@@ -445,7 +500,8 @@ def test_sharded_scheduler_at_world_1_is_the_unsharded_one(dev):
     d = torch.from_numpy(
         (rng.standard_normal((3, 93, 128)) + 1j * rng.standard_normal((3, 93, 128))).astype(
             np.complex64)).to(dev)
-    cfg = ReconConfig(golden_angle=True, data_undersamp=0.4, prof_slide=21, adjoint=True)
+    cfg = ReconConfig(golden_angle=True, data_undersamp=0.4, prof_slide=21, adjoint=True,
+                      matmul_dtype="float32")
     work, slide, nz = cfg.frame_geometry(128, 93)
     mesh = make_mesh(1, 1, device=dev)
     for combine in ("sos", "walsh", "none"):

@@ -79,12 +79,12 @@ def test_to_sample_planes_matches_jax(nro, nxos):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("matmul_dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("matmul_dtype,tol", [("float32", 1e-5), ("bfloat16", 1e-4)])
 def test_planes_match_pallas_win_kernel(matmul_dtype, tol):
     """The wrapper's CPU route vs `_win_kernel` in interpret mode at nxos
-    256 (the windowed kernel's smallest tiled grid).  The port computes in
-    fp32 for every precision class, so bf16 is held to the bf16-vs-fp32
-    bound of tests/test_grid_pallas.py:71."""
+    256 (the windowed kernel's smallest tiled grid), at the same precision
+    class: the port rounds JAX's operands, so bfloat16 sits within the bf16
+    flip noise of tests/test_torch_precision.py, not the bf16-vs-fp32 gap."""
     nxos = 256
     d = _data(5, 1, 12, nxos)
     ang = _angles(12, 20055)

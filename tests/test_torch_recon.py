@@ -250,7 +250,6 @@ PORTED_FLAGS = {"-i", "forward mode", "--stream", "-3", "--combine walsh", "--co
         (["-a", "--stream"], "--stream"),
         (["-a", "--shard"], "--shard"),
         (["-a", "--shard-spokes"], "--shard-spokes"),
-        (["-a", "--dft-dot", "highest"], "--dft-dot"),
         (["-a", "-k", "7"], "-k 7"),
         (["-k", "7.5", "-i", "2"], "-k 7.5"),
         (["-3", "-a"], "-3"),
@@ -292,9 +291,11 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, argv, flag):
         (["-G", "--precision", "accurate"], None),
         (["-G", "-k", "4"], None),
         (["-G", "--profile", "PROF"], ["-G"]),
+        (["-G", "--dft-dot", "highest"], None),
+        (["-G", "--dft-dot", "bf16x3", "-v"], None),
     ],
     ids=["B-T-r", "linear_half", "linear_full", "walsh", "compress", "compress-none", "backend",
-         "precision", "k4", "profile"],
+         "precision", "k4", "profile", "dft-dot-highest", "dft-dot-bf16x3"],
 )
 def test_cli_new_flags_match_tron(tmp_path, indata, monkeypatch, extra, jax_extra):
     """Every flag this CLI newly takes, through `tron` and `tron-torch` on
@@ -330,6 +331,9 @@ def test_cli_new_flags_match_tron(tmp_path, indata, monkeypatch, extra, jax_extr
     if "--profile" in extra:
         traces = [f for f in os.listdir(prof) if f.endswith(".trace.json")]
         assert len(traces) == 1 and os.path.getsize(os.path.join(prof, traces[0])) > 0
+    if "--dft-dot" in extra:  # ignored: the same file as without the flag
+        assert cli.main(base + ["-G", str(fin), str(tmp_path / "plain.ra")]) == 0
+        np.testing.assert_array_equal(got, ra_read(tmp_path / "plain.ra"))
 
 
 def test_cli_linear_angle_roundtrip_matches_tron(tmp_path, monkeypatch):

@@ -63,7 +63,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     cs = ctypes.c_size_t
     lib.tron_grid_radial2d_planes.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp, cs, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, ci, vp, cs, vp,
     ]
     lib.tron_grid_radial2d_planes.restype = ci
     lib.tron_grid_radial2d_workspace_bytes.argtypes = [ci, ci, ci, ci, cf]
@@ -71,13 +71,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.tron_grid_radial2d_batched_planes.argtypes = lib.tron_grid_radial2d_planes.argtypes
     lib.tron_grid_radial2d_batched_planes.restype = ci
     lib.tron_grid_seg_radial2d_planes.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp, ci, cf, ci, vp, cs, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp, ci, cf, ci, ci, vp, cs, vp,
     ]
     lib.tron_grid_seg_radial2d_planes.restype = ci
     lib.tron_grid_seg_radial2d_workspace_bytes.argtypes = [ci, ci, ci, ci, cf, ci]
     lib.tron_grid_seg_radial2d_workspace_bytes.restype = cs
     lib.tron_degrid_radial2d_planes.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, vp,
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cf, cf, ci, vp,
     ]
     lib.tron_degrid_radial2d_planes.restype = ci
     lib.tron_cuda_error_string.argtypes = [ci]

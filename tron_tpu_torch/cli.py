@@ -7,7 +7,7 @@
                [--combine sos|walsh|none] [--compress N] [--half]
                [--toeplitz] [--incremental] [--stream] [--shard | --shard-spokes]
                [--backend auto|jnp|pallas] [--precision fast|accurate]
-               [--profile DIR] in.ra [out.ra]
+               [--dft-dot auto|highest|bf16x3] [--profile DIR] in.ra [out.ra]
 
 With `-a` the input is a 5-D .ra (nc, nt, nro, npe1, npe2) and the output
 (1, nt, nx, ny, nz) with nx = nro/2; `-i n` runs n CGNR iterations per
@@ -20,7 +20,9 @@ slice-major.  `--stream` (adjoint) reads profile windows from disk block by
 block and lands each block of images in its region of the output file; with
 `-3` it streams npe1 windows at all kz encodings.  `--compress N` projects
 the coils onto N virtual coils (ignored with `-3`).  `-g` picks the CUDA
-device; `-B`, `-T` and `-r` are accepted and ignored, as `tron` does.
+device; `-B`, `-T` and `-r` are accepted and ignored, as `tron` does, and
+so is `--dft-dot` (off the TPU `tron` ignores it too: the port's FFTs are
+`torch.fft` at fp32 for every precision class).
 
 `--shard` splits the frames (with `-3` the kz slices, without `-a` the image
 slices) over one process per CUDA device, `--shard-spokes` each frame's
@@ -29,8 +31,8 @@ LOCAL_RANK set) the program joins that world, every rank reads the input and
 rank 0 writes the output; otherwise it starts one rank per visible card
 itself, and with one card it runs in this process, on the card `-g` names.
 
-Exit status 2, with one line naming the reason: `--dft-dot` (the port has
-no MXU DFT) and `-k` outside 0 < w < 7 (the kernels' weight windows).
+Exit status 2, with one line naming the reason: `-k` outside 0 < w < 7
+(the kernels' weight windows).
 """
 
 from __future__ import annotations
@@ -84,9 +86,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the recon into DIR")
     p.add_argument("--precision", default="fast", choices=["fast", "accurate"],
-                   help="precision class of the gridder as `tron` names it (fast = "
-                   "bfloat16, accurate = bf16x3); the CUDA kernels compute every class "
-                   "to float32 grade, so both give the same images")
+                   help="precision class of the kernels on the card as `tron` names it "
+                   "(fast = 1-pass bfloat16, accurate = compensated bf16x3, ~fp32); "
+                   "on the CPU the plain operators run float32, as `tron`'s do")
+    p.add_argument("--dft-dot", default="auto", choices=["auto", "highest", "bf16x3"],
+                   help="(ignored; `tron`'s MXU DFT dot algorithm: the port's FFTs are "
+                   "torch.fft at fp32)")
     p.add_argument("--toeplitz", action="store_true",
                    help="with -i: apply the CGNR normal operator as a "
                    "Toeplitz-embedded FFT convolution (one PSF kernel per frame)")
@@ -270,12 +275,6 @@ def _stream_koosh_to_file(args, cfg: ReconConfig, hdr, device) -> int:
     )
 
 
-# flags of `tron` that the port does not run, each with its reason
-_REFUSED = {
-    "--dft-dot": "not ported: the port has no MXU DFT, its FFTs go through torch.fft",
-}
-
-
 def _profiler(profile_dir, device):
     """--profile DIR: a torch.profiler context whose Chrome trace lands in
     DIR when the recon ends (CPU activity only when there is no card)."""
@@ -310,15 +309,6 @@ def rank_main(ctx, argv: list) -> int:
 def main(argv=None, _rank=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args, unknown = build_parser().parse_known_args(argv)
-    for a in unknown:
-        if a.startswith("-"):
-            flag = a.split("=", 1)[0]
-            why = _REFUSED.get(flag)
-            if why is None:
-                print(f"error: unrecognized arguments: {a}", file=sys.stderr)
-            else:
-                print(f"error: {flag}: {why}", file=sys.stderr)
-            return 2
     if unknown:
         print(f"error: unrecognized arguments: {' '.join(unknown)}", file=sys.stderr)
         return 2
@@ -400,6 +390,8 @@ def _run(args, rank: int, world: int, device) -> int:
     )
     # --shard honours --incremental (each frame shard telescopes from its own
     # first frame, `parallel/mesh.py`), so no note for it
+    vprint(f"note: --dft-dot {args.dft_dot} ignored (the FFTs are torch.fft at fp32 for every "
+           "precision class)")
     if args.incremental and (args.shard_spokes or not cfg.golden_angle or cfg.niter > 0):
         why = (
             "spoke-sharded recon" if args.shard_spokes

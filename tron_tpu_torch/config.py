@@ -46,8 +46,9 @@ class KernelTuning:
     gives these defaults."""
 
     # batched-eval gridding: the tile gridding kernel with its contraction a
-    # static unroll on tensor cores (B5 `_win_kernel_batched`, 3xTF32),
-    # float32-grade like the default tile kernel
+    # static unroll on tensor cores (B5 `_win_kernel_batched`: bf16 MMAs at
+    # the bf16 classes, 3xTF32 at float32), the same class as the default
+    # tile kernel
     batched: bool = False
 
     @classmethod
@@ -99,10 +100,13 @@ class ReconConfig:
                                  # "pallas": the CUDA kernel (raises on a CPU
                                  # tensor); "auto": the kernel for a CUDA
                                  # tensor, the plain version for a CPU tensor
-    matmul_dtype: str = "bfloat16"   # precision class of the JAX gridder
+    matmul_dtype: str = "bfloat16"   # precision class of the kernels
                                      # ("bfloat16" | "bf16x2" | "bf16x3" |
-                                     # "float32"); the CUDA kernel runs fp32
-                                     # FMA for every class
+                                     # "float32", ops/precision.py): on the
+                                     # card each kernel computes it as its
+                                     # Pallas twin does; a CPU tensor's main
+                                     # path runs float32, as JAX's jnp path
+                                     # (nufft.kernel_class)
     pe_chunk: int = 8            # spokes per step of the plain dense gridder
     tuning: KernelTuning | None = None  # None: defaults with TRON_* env
                                         # overrides (KernelTuning.from_env)

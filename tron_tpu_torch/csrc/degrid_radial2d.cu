@@ -40,6 +40,15 @@
 // (whole waves), walking the samples in block strides.  Channel blocks of
 // up to 16 real channels run any C.
 //
+// Precision classes (a template parameter; precision.cuh): float32 sums
+// w = wx * wy times G per neighbour, one fp32 FMA each.  A bf16 class takes
+// its weights rounded as kb_kernel's (kb.cuh) and
+// JAX's grouping (degrid_pallas.py:93-146): per neighbour row dy, v =
+// sum_dx A G over the row with A = wx and G the grid rounded to bfloat16
+// and split (bfloat16 Ah Gh; bf16x2 Ah Gh + Ah Gl; bf16x3 Ah Gh + Ah Gl +
+// Al Gh, exact products summed in fp32), then acc = fmaf(wy, v, acc) in
+// fp32, wy not rounded.
+//
 // Plain C interface, loaded with ctypes by tron_tpu_torch/_build.py.
 
 #include <cuda_runtime.h>
@@ -48,6 +57,7 @@
 #include <type_traits>
 
 #include "kb.cuh"
+#include "precision.cuh"
 
 namespace {
 
@@ -71,7 +81,7 @@ __host__ __device__ constexpr int pow2_at_least(int v) {
   return v <= 1 ? 1 : 2 * pow2_at_least((v + 1) / 2);
 }
 
-template <int KP, int V, int MAXOFF>
+template <int KP, int V, int MAXOFF, int CLS>
 __global__ void __launch_bounds__(kThreads)
 degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
                        const float* __restrict__ ct,    // (npe,)
@@ -116,10 +126,10 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
         const int xu = x0 + d;
         const int yu = y0 + d;
         if (wrap || (xu >= 0 && xu < n)) {
-          mx[j] = kb_weight(__fsub_rn(static_cast<float>(xu), xs), inv_kw, amp, beta);
+          mx[j] = kb_weight<CLS != kF32>(__fsub_rn(static_cast<float>(xu), xs), inv_kw, amp, beta);
         }
         if (wrap || (yu >= 0 && yu < n)) {
-          my[j] = kb_weight(__fsub_rn(static_cast<float>(yu), ys), inv_kw, amp, beta);
+          my[j] = kb_weight<CLS != kF32>(__fsub_rn(static_cast<float>(yu), ys), inv_kw, amp, beta);
         }
       }
     }
@@ -129,6 +139,17 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
     for (int d = 0; d < MAXOFF; ++d) {
       wx[d] = __shfl_sync(0xffffffffu, mx[(d / G) % PER], gbase | (d % G));
       ox[d] = wrap_index(x0 + d, n) * K;
+    }
+
+    // a bf16 class: A's hi half in place of wx, its lo half (bf16x3) beside it
+    float al[MAXOFF];
+    if constexpr (CLS != kF32) {
+#pragma unroll
+      for (int d = 0; d < MAXOFF; ++d) {
+        const float ah = bf16r(wx[d]);
+        if constexpr (CLS == kBF16x3) al[d] = bf16_lo(wx[d], ah);
+        wx[d] = ah;
+      }
     }
 
     for (int k0 = 0; k0 < K; k0 += KP) {
@@ -143,16 +164,38 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
         const float wy = __shfl_sync(0xffffffffu, my_d, gbase | (dy % G));
         if (wy == 0.0f) continue;
         const float* row = grid + static_cast<size_t>(wrap_index(y0 + dy, n)) * n * K + k0 + g * V;
+        if constexpr (CLS == kF32) {
 #pragma unroll
-        for (int dx = 0; dx < MAXOFF; ++dx) {
-          const float w = wx[dx] * wy;
-          if (dx >= noff || w == 0.0f || !mine) continue;
-          const Vec v = __ldg(reinterpret_cast<const Vec*>(row + ox[dx]));
-          acc.x = fmaf(w, v.x, acc.x);
-          acc.y = fmaf(w, v.y, acc.y);
+          for (int dx = 0; dx < MAXOFF; ++dx) {
+            const float w = wx[dx] * wy;
+            if (dx >= noff || w == 0.0f || !mine) continue;
+            const Vec v = __ldg(reinterpret_cast<const Vec*>(row + ox[dx]));
+            acc.x = fmaf(w, v.x, acc.x);
+            acc.y = fmaf(w, v.y, acc.y);
+            if constexpr (V == 4) {
+              acc.z = fmaf(w, v.z, acc.z);
+              acc.w = fmaf(w, v.w, acc.w);
+            }
+          }
+        } else {
+          Vec v{};  // the row's sum over x
+#pragma unroll
+          for (int dx = 0; dx < MAXOFF; ++dx) {
+            const float a_lo = CLS == kBF16x3 ? al[dx] : 0.0f;
+            if (dx >= noff || (wx[dx] == 0.0f && a_lo == 0.0f) || !mine) continue;
+            const Vec gv = __ldg(reinterpret_cast<const Vec*>(row + ox[dx]));
+            v.x = class_fma<CLS, false>(wx[dx], a_lo, gv.x, v.x);
+            v.y = class_fma<CLS, false>(wx[dx], a_lo, gv.y, v.y);
+            if constexpr (V == 4) {
+              v.z = class_fma<CLS, false>(wx[dx], a_lo, gv.z, v.z);
+              v.w = class_fma<CLS, false>(wx[dx], a_lo, gv.w, v.w);
+            }
+          }
+          acc.x = fmaf(wy, v.x, acc.x);
+          acc.y = fmaf(wy, v.y, acc.y);
           if constexpr (V == 4) {
-            acc.z = fmaf(w, v.z, acc.z);
-            acc.w = fmaf(w, v.w, acc.w);
+            acc.z = fmaf(wy, v.z, acc.z);
+            acc.w = fmaf(wy, v.w, acc.w);
           }
         }
       }
@@ -166,14 +209,14 @@ degrid_radial2d_kernel(const float* __restrict__ grid,  // (n, n, K)
   }
 }
 
-template <int KP, int V, int MAXOFF>
+template <int KP, int V, int MAXOFF, int CLS>
 void launch(const float* grid, const float* ct, const float* st,
            const float* rad, float2* out, int npe, int nro, int n, int K,
            int noff, int wrap, float kw, float beta, cudaStream_t stream) {
   static int per_sm = 0;  // resident blocks per SM, from the occupancy query
   if (per_sm == 0) {
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, degrid_radial2d_kernel<KP, V, MAXOFF>, kThreads, 0);
+        &per_sm, degrid_radial2d_kernel<KP, V, MAXOFF, CLS>, kThreads, 0);
     if (per_sm < 1) per_sm = 1;
   }
   int dev = 0, sms = 0;
@@ -183,40 +226,40 @@ void launch(const float* grid, const float* ct, const float* st,
   const long long need = (static_cast<long long>(npe) * nro + spb - 1) / spb;
   const long long full = static_cast<long long>(sms) * per_sm;
   const int blocks = static_cast<int>(need < full ? need : full);
-  degrid_radial2d_kernel<KP, V, MAXOFF><<<blocks, kThreads, 0, stream>>>(
+  degrid_radial2d_kernel<KP, V, MAXOFF, CLS><<<blocks, kThreads, 0, stream>>>(
       grid, ct, st, rad, out, npe, nro, n, K, noff, wrap, kw, beta);
 }
 
-// Calls launch<KP, V, MAXOFF> for the first channel block of K real channels
+// Calls launch<KP, V, MAXOFF, CLS> for the first channel block of K real channels
 // (KP = K below 16, else 16) with V = 4 floats per lane when K is a multiple
 // of 4, else 2.
-template <int KP, int MAXOFF>
+template <int KP, int MAXOFF, int CLS>
 void dispatch_v(int K, const float* g, const float* c, const float* s,
                const float* r, float2* o, int npe, int nro, int n, int noff,
                int wrap, float kw, float beta, cudaStream_t strm) {
   if constexpr (KP % 4 == 0) {
     if (K % 4 == 0) {
-      launch<KP, 4, MAXOFF>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
+      launch<KP, 4, MAXOFF, CLS>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
       return;
     }
   }
-  launch<KP, 2, MAXOFF>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
+  launch<KP, 2, MAXOFF, CLS>(g, c, s, r, o, npe, nro, n, K, noff, wrap, kw, beta, strm);
 }
 
-// The channel-block switch for one neighbour capacity.
-template <int MAXOFF>
+// The channel-block switch for one neighbour capacity and class.
+template <int MAXOFF, int CLS>
 void dispatch_k(int K, const float* g, const float* c, const float* s,
                const float* r, float2* o, int npe, int nro, int n, int noff,
                int wrap, float kw, float beta, cudaStream_t strm) {
   switch (K < kMaxChannels ? K : kMaxChannels) {
-    case 2: dispatch_v<2, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 4: dispatch_v<4, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 6: dispatch_v<6, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 8: dispatch_v<8, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 10: dispatch_v<10, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 12: dispatch_v<12, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    case 14: dispatch_v<14, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
-    default: dispatch_v<16, MAXOFF>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 2: dispatch_v<2, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 4: dispatch_v<4, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 6: dispatch_v<6, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 8: dispatch_v<8, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 10: dispatch_v<10, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 12: dispatch_v<12, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    case 14: dispatch_v<14, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
+    default: dispatch_v<16, MAXOFF, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm); break;
   }
 }
 
@@ -227,14 +270,15 @@ extern "C" {
 // grid: (n, n, K) f32 planes, K = 2C even (channel 2c is coil c's real
 // part, 2c+1 its imaginary part); ct, st: (npe,) f32; rad: (nro,) f32
 // sample radii; out: (C, npe, nro) complex64; noff = int(2 kw) + 1 in 1 to
-// 14 (kw < 7).  npe*nro and n*n*K must fit an int (the wrapper checks).  Returns cudaGetLastError() after the
-// launch (0 on success).
+// 14 (kw < 7); cls the precision class (precision.cuh).  npe*nro and n*n*K
+// must fit an int (the wrapper checks).  Returns cudaGetLastError() after
+// the launch (0 on success).
 int tron_degrid_radial2d_planes(const void* grid, const void* ct,
                                 const void* st, const void* rad, void* out,
                                 int npe, int nro, int n, int K, int noff,
-                                int wrap, float kw, float beta, void* stream) {
+                                int wrap, float kw, float beta, int cls, void* stream) {
   if (K <= 0 || (K & 1) || n <= 0 || nro <= 0 || npe <= 0 || noff < 1 ||
-      noff > kWideOff) {
+      noff > kWideOff || bad_class(cls)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* g = static_cast<const float*>(grid);
@@ -243,11 +287,14 @@ int tron_degrid_radial2d_planes(const void* grid, const void* ct,
   const float* r = static_cast<const float*>(rad);
   float2* o = static_cast<float2*>(out);
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
-  if (noff <= kNarrowOff) {
-    dispatch_k<kNarrowOff>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
-  } else {
-    dispatch_k<kWideOff>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
-  }
+  with_class(cls, [&](auto cl) {
+    constexpr int CLS = decltype(cl)::value;
+    if (noff <= kNarrowOff) {
+      dispatch_k<kNarrowOff, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
+    } else {
+      dispatch_k<kWideOff, CLS>(K, g, c, s, r, o, npe, nro, n, noff, wrap, kw, beta, strm);
+    }
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,10 @@
 // culled MXU gridder of the main path, in its integer-radius and its
 // exact-lattice `raw_nro` modes) and ::_grid_kernel (the dense-range
 // gridder for grids that do not tile); this kernel has no tiling
-// constraint, so one entry point covers both contracts.
+// constraint, so one entry point covers both contracts.  Each precision
+// class is its own instantiation of pass 3; _grid_kernel's class rule (at
+// bfloat16 the samples are rounded first, every other class is fp32,
+// grid_pallas.py:832-833) is the wrapper's (ops/grid_cuda.py).
 //
 // Bound: bytes.  A whole-body frame (204 spokes x 512 rows x 12 channels in,
 // 6 x 512^2 complex64 out) moves 17.6 MB, 5.25 us at 3.35 TB/s; its terms
@@ -44,7 +47,10 @@
 //      samples and weight runs by cp.async; each staging thread derives its
 //      row's warp mask from the runs.  The runs are expanded to the tile's
 //      16 columns and 16 rows, then each thread owns a pixel and adds
-//      wy * wx * s over the rows in order, fp32 FMA.  A warp holds two tile
+//      wy * wx * s over the rows in order, one fp32 FMA per term at class
+//      float32; a bf16 class rounds JAX's operands (A = wx, U = s * wy in
+//      fp32) and adds its split products, one to three FMAs of exact
+//      products per term (precision.cuh).  A warp holds two tile
 //      rows and walks only the rows whose nonzero y-weights reach them, so
 //      the skip is warp-uniform.  A one-item tile stores its scaled sums; a
 //      split tile's items write fp32 partials.
@@ -55,7 +61,7 @@
 // support test zeroes the rest, so every nonzero term of the plain version
 // is summed once.  The sums follow the spokes in index order and the rows
 // ascending; a split tile regroups its fp32 sums by item.  No atomics: repeat
-// runs give the same bits.  No tensor cores: every term is an fp32 FMA.
+// runs give the same bits.  No tensor cores: every term is FMAs.
 // The FMA loop is about a third of pass 3's block time on the H100, the
 // staging and the band pass the rest (PERF.md); B5 (grid_radial2d_batched.cu)
 // runs the same passes with a 3xTF32 mma.sync contraction.  Passes 1, 2
@@ -68,8 +74,9 @@
 
 namespace {
 
-// Pass 3: one item per block, one channel block per blockIdx.y.
-template <int KP>
+// Pass 3: one item per block, one channel block per blockIdx.y; CLS the
+// precision class.
+template <int KP, int CLS>
 __global__ void __launch_bounds__(kThreads)
 grid_tile_contract_kernel(const float* __restrict__ planes,  // (npe, nR, K)
                           float2* __restrict__ out,          // (K/2, nxos, nxos)
@@ -122,7 +129,7 @@ grid_tile_contract_kernel(const float* __restrict__ planes,  // (npe, nR, K)
     expand_weights<kTile, false>(s_hdr, &s_wt[0][0], 2 * kTile, W, n, n, wcoord, &s_wx[0][0],
                                  &s_wy[0][0]);
     __syncthreads();
-    fma_rows<KP, kTile>(n, s_mask, &s_wx[0][0], &s_wy[0][0], &s_samp[0][0], KS, kn, tx, ty, acc);
+    fma_rows<KP, kTile, CLS>(n, s_mask, &s_wx[0][0], &s_wy[0][0], &s_samp[0][0], KS, kn, tx, ty, acc);
     __syncthreads();  // the chunk's buffers are reused
   }
   store_item<KP>(out, acc, w, slot, K, k0, kn, nxos, ts, tx, ty, scale);
@@ -141,17 +148,19 @@ size_t tron_grid_radial2d_workspace_bytes(int npe, int nR, int nxos, int K,
 
 // planes: (npe, nR, K) f32, K = 2C even; ct, st: (npe,) f32; rad: null for
 // integer radii (then nR == nxos), else (nR,) f32 row radii; out: (C, nxos,
-// nxos) complex64; work: at least tron_grid_radial2d_workspace_bytes bytes,
-// 256-byte aligned, overwritten.  npe * nR must fit an int and kw be below
-// 7 (a weight window of at most 16 pixels).  Launches the four passes on
+// nxos) complex64; cls: the precision class (precision.cuh: 0 bfloat16,
+// 1 bf16x2, 2 bf16x3, 3 float32); work: at least
+// tron_grid_radial2d_workspace_bytes bytes, 256-byte aligned, overwritten.
+// npe * nR must fit an int and kw be below 7 (a weight window of at most 16
+// pixels).  Launches the four passes on
 // `stream` and returns cudaGetLastError() after them (0 on success).
 int tron_grid_radial2d_planes(const void* planes, const void* ct,
                               const void* st, const void* rad, void* out,
                               int npe, int nR, int nxos, int K, float kw,
-                              float beta, float scale, void* work,
+                              float beta, float scale, int cls, void* work,
                               size_t work_size, void* stream) {
   Work w;
-  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) ||
+  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) || bad_class(cls) ||
       band_work_bytes(npe, nR, nxos, K, kw, &w, static_cast<char*>(work)) > work_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -163,17 +172,23 @@ int tron_grid_radial2d_planes(const void* planes, const void* ct,
   const int T = tiles_of(nxos);
   with_channel_block(K, [&](auto kp) {
     constexpr int KP = decltype(kp)::value;
-    auto contract = [&](dim3 grid) {
-      grid_tile_contract_kernel<KP><<<grid, kThreads, 0, strm>>>(p, o, npe, nR, nxos, K, W,
-                                                                  scale, T, w);
-    };
-    const float* c = static_cast<const float*>(ct);
-    const float* s = static_cast<const float*>(st);
-    if (r == nullptr) {
-      launch_band_passes<false>(c, s, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm, contract);
-    } else {
-      launch_band_passes<true>(c, s, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm, contract);
-    }
+    with_class(cls, [&](auto c) {
+      constexpr int CLS = decltype(c)::value;
+      constexpr bool RW = CLS != kF32;  // a bf16 class: the weights rounded as kb_kernel's
+      auto contract = [&](dim3 grid) {
+        grid_tile_contract_kernel<KP, CLS><<<grid, kThreads, 0, strm>>>(p, o, npe, nR, nxos, K, W, scale,
+                                                        T, w);
+      };
+      const float* c0 = static_cast<const float*>(ct);
+      const float* s0 = static_cast<const float*>(st);
+      if (r == nullptr) {
+        launch_band_passes<false, RW>(c0, s0, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm,
+                                      contract);
+      } else {
+        launch_band_passes<true, RW>(c0, s0, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm,
+                                     contract);
+      }
+    });
   });
   return static_cast<int>(cudaGetLastError());
 }

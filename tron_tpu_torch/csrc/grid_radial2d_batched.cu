@@ -22,19 +22,29 @@
 //     y-major so that a thread's two accumulator columns are the real and
 //     imaginary channel of one coil;
 //   - every row is contracted, none skipped: 32-row groups, each a static
-//     unroll of four m16n8k8 TF32 k-steps; a warp owns n-tiles warp,
-//     warp + 8, ... of the 2 KP n-tiles (3 at 12 channels);
-//   - precision stays float32-grade as 3xTF32: x_hi = cvt.rna.tf32(x),
+//     unroll of four m16n8k8 k-steps; a warp owns n-tiles warp, warp + 8,
+//     ... of the 2 KP n-tiles (3 at 12 channels);
+//   - the precision class is a template parameter, as the TPU kernel's
+//     `passes` (grid_pallas.py:1219-1231).  The bf16 classes pack JAX's
+//     operands with cvt.rn.bf16x2.f32, A = the x-weights, U = s * wy
+//     formed in fp32, and run one, two or three bf16 MMAs per k-step
+//     (m16n8k8.f32.bf16.bf16.f32, exact products, fp32 accumulation):
+//     bfloat16 Uh Ah; bf16x2 Uh Ah + Uh Al; bf16x3 Uh Ah + Ul Ah + Uh Al,
+//     with xh = bf16(x), xl = bf16(x - xh) (precision.cuh).  A thread's k
+//     rows are j and j + 4 in every class, so its A loads stay free of bank
+//     conflicts and its accumulators are the same four;
+//   - float32 stays float32-grade as 3xTF32: x_hi = cvt.rna.tf32(x),
 //     x_lo = cvt.rna.tf32(x - x_hi) for both operands, and the terms
 //     hi*lo, lo*hi, hi*hi accumulated in fp32 in that order, each split
-//     product good to about 2^-21 (the bf16 classes are not built here).
+//     product good to about 2^-21.
 // Deterministic: a fixed k-step order, partials summed in item order by
 // pass 4, no atomics.  The sums regroup B1's terms, so the output is within
 // the fp32 limit of B1's and of the plain version, not bitwise.
 //
 // Bound: bytes, as B1 (17.6 MB per whole-body frame, 5.25 us at
 // 3.35 TB/s); its tensor-core work, 190,567 rows x 16 x 192 x 2 x 3 =
-// 3.5 GFLOP of TF32 per frame, would take 7 us at 495 TFLOP/s.  wgmma
+// 3.5 GFLOP of TF32 per frame at float32, would take 7 us at 495 TFLOP/s,
+// and 1.2 GFLOP per bf16 pass 1.2 us per pass at 989 TFLOP/s.  wgmma
 // needs 64-row M, which one 16-column tile does not fill; regrouping four
 // tiles (or four items) per warpgroup for it is later work.
 //
@@ -58,6 +68,30 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
+// (x0, x1) as two bfloat16 in one register, x0 in the low half (the lower
+// k index of a fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(x1), "f"(x0));
+  return r;
+}
+
+// x0, x1 = hi + lo, each half a bfloat16 pair: hi = bf16(x), lo = bf16(x -
+// hi) (x - hi is exact).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(__fsub_rn(x0, __uint_as_float(hi << 16)),
+                 __fsub_rn(x1, __uint_as_float(hi & 0xffff0000u)));
+}
+
+// d += a b, one m16n8k8 bf16 product accumulated in fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
 // d += a b, one m16n8k8 TF32 product accumulated in fp32.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -67,8 +101,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Pass 3 of B5: one item per block, one channel block per blockIdx.y.
-template <int KP>
+// Pass 3 of B5: one item per block, one channel block per blockIdx.y; CLS
+// the precision class.
+template <int KP, int CLS>
 __global__ void __launch_bounds__(kThreads)
 grid_tile_mma_kernel(const float* __restrict__ planes,  // (npe, nR, K)
                      float2* __restrict__ out,          // (K/2, nxos, nxos)
@@ -148,20 +183,37 @@ grid_tile_mma_kernel(const float* __restrict__ planes,  // (npe, nR, K)
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         const int j = r0 + 8 * ks + q;  // this thread's k rows j and j + 4
-        uint32_t ah[4], al[4];
-        split(s_wx[j][g], ah[0], al[0]);
-        split(s_wx[j][g + 8], ah[1], al[1]);
-        split(s_wx[j + 4][g], ah[2], al[2]);
-        split(s_wx[j + 4][g + 8], ah[3], al[3]);
+        if constexpr (CLS == kF32) {
+          uint32_t ah[4], al[4];
+          split(s_wx[j][g], ah[0], al[0]);
+          split(s_wx[j][g + 8], ah[1], al[1]);
+          split(s_wx[j + 4][g], ah[2], al[2]);
+          split(s_wx[j + 4][g + 8], ah[3], al[3]);
 #pragma unroll
-        for (int i = 0; i < TPW; ++i) {
-          if (!live[i]) continue;  // warp-uniform
-          uint32_t bh0, bl0, bh1, bl1;
-          split(s_samp[j][bc[i]] * s_wy[j][by[i]], bh0, bl0);
-          split(s_samp[j + 4][bc[i]] * s_wy[j + 4][by[i]], bh1, bl1);
-          mma_tf32(acc[i], ah, bl0, bl1);
-          mma_tf32(acc[i], al, bh0, bh1);
-          mma_tf32(acc[i], ah, bh0, bh1);
+          for (int i = 0; i < TPW; ++i) {
+            if (!live[i]) continue;  // warp-uniform
+            uint32_t bh0, bl0, bh1, bl1;
+            split(s_samp[j][bc[i]] * s_wy[j][by[i]], bh0, bl0);
+            split(s_samp[j + 4][bc[i]] * s_wy[j + 4][by[i]], bh1, bl1);
+            mma_tf32(acc[i], ah, bl0, bl1);
+            mma_tf32(acc[i], al, bh0, bh1);
+            mma_tf32(acc[i], ah, bh0, bh1);
+          }
+        } else {
+          // A: rows g and g + 8 of the fragment (tile columns), k rows j, j + 4
+          uint32_t ah[2], al[2];
+          split_bf16(s_wx[j][g], s_wx[j + 4][g], ah[0], al[0]);
+          split_bf16(s_wx[j][g + 8], s_wx[j + 4][g + 8], ah[1], al[1]);
+#pragma unroll
+          for (int i = 0; i < TPW; ++i) {
+            if (!live[i]) continue;  // warp-uniform
+            uint32_t bh, bl;
+            split_bf16(__fmul_rn(s_samp[j][bc[i]], s_wy[j][by[i]]),
+                       __fmul_rn(s_samp[j + 4][bc[i]], s_wy[j + 4][by[i]]), bh, bl);
+            mma_bf16(acc[i], ah, bh);                        // Uh Ah
+            if constexpr (CLS == kBF16x3) mma_bf16(acc[i], ah, bl);  // + Ul Ah
+            if constexpr (CLS != kBF16) mma_bf16(acc[i], al, bh);    // + Uh Al
+          }
         }
       }
     }
@@ -200,15 +252,15 @@ grid_tile_mma_kernel(const float* __restrict__ planes,  // (npe, nR, K)
 
 extern "C" {
 
-// As tron_grid_radial2d_planes (the same arguments and workspace, from
-// tron_grid_radial2d_workspace_bytes).
+// As tron_grid_radial2d_planes (the same arguments, class codes and
+// workspace, from tron_grid_radial2d_workspace_bytes).
 int tron_grid_radial2d_batched_planes(const void* planes, const void* ct,
                                       const void* st, const void* rad,
                                       void* out, int npe, int nR, int nxos,
-                                      int K, float kw, float beta, float scale,
+                                      int K, float kw, float beta, float scale, int cls,
                                       void* work, size_t work_size, void* stream) {
   Work w;
-  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) ||
+  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) || bad_class(cls) ||
       band_work_bytes(npe, nR, nxos, K, kw, &w, static_cast<char*>(work)) > work_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -220,17 +272,23 @@ int tron_grid_radial2d_batched_planes(const void* planes, const void* ct,
   const int T = tiles_of(nxos);
   with_channel_block(K, [&](auto kp) {
     constexpr int KP = decltype(kp)::value;
-    auto contract = [&](dim3 grid) {
-      grid_tile_mma_kernel<KP><<<grid, kThreads, 0, strm>>>(p, o, npe, nR, nxos, K, W, scale,
-                                                             T, w);
-    };
-    const float* c = static_cast<const float*>(ct);
-    const float* s = static_cast<const float*>(st);
-    if (r == nullptr) {
-      launch_band_passes<false>(c, s, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm, contract);
-    } else {
-      launch_band_passes<true>(c, s, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm, contract);
-    }
+    with_class(cls, [&](auto c) {
+      constexpr int CLS = decltype(c)::value;
+      constexpr bool RW = CLS != kF32;  // a bf16 class: the weights rounded as kb_kernel's
+      auto contract = [&](dim3 grid) {
+        grid_tile_mma_kernel<KP, CLS><<<grid, kThreads, 0, strm>>>(p, o, npe, nR, nxos, K, W, scale,
+                                                        T, w);
+      };
+      const float* c0 = static_cast<const float*>(ct);
+      const float* s0 = static_cast<const float*>(st);
+      if (r == nullptr) {
+        launch_band_passes<false, RW>(c0, s0, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm,
+                                      contract);
+      } else {
+        launch_band_passes<true, RW>(c0, s0, r, o, npe, nR, nxos, K, kw, beta, scale, w, strm,
+                                     contract);
+      }
+    });
   });
   return static_cast<int>(cudaGetLastError());
 }

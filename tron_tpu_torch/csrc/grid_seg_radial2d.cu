@@ -29,8 +29,10 @@
 //      whole segments with cp.async.bulk (the 1-D TMA copy) into a ring of
 //      kStages shared-memory stages, each completing on its mbarrier, and
 //      keeps the next stage in flight while the 8 consumer warps contract
-//      the current one with B1's fp32 FMA walk (grid_tiles.cuh:fma_rows,
-//      its warp-uniform skip of rows that miss a warp's tile rows) and
+//      the current one with B1's FMA walk at the precision class
+//      (grid_tiles.cuh:fma_rows, its warp-uniform skip of rows that miss a
+//      warp's tile rows; _seg_kernel's classes are B1's terms, bf16x2 taken
+//      as bf16x3 by the wrapper as grid_pallas.py:737 takes it) and
 //      release it on a second mbarrier.  When the samples are not 16-byte
 //      aligned (an odd coil count: K * 4 = 8 mod 16) the producer copies
 //      them with cp.async and an arrive-on of the same barrier instead;
@@ -117,7 +119,7 @@ __device__ void seg_list(int t, const float* __restrict__ ct, const float* __res
   }
 }
 
-template <bool LATTICE>
+template <bool LATTICE, bool RW>
 __global__ void __launch_bounds__(kThreads)
 grid_seg_list_kernel(const float* __restrict__ ct, const float* __restrict__ st,
                      const float* __restrict__ rad, int npe, int nR, int nxos, float kw,
@@ -126,8 +128,8 @@ grid_seg_list_kernel(const float* __restrict__ ct, const float* __restrict__ st,
   if (static_cast<int>(blockIdx.x) < ntiles) {
     seg_list(blockIdx.x, ct, st, npe, nxos, seg, margin, seg_start, w);
   } else {
-    weight_rows<LATTICE>(blockIdx.x - ntiles, gridDim.x - ntiles, ct, st, rad, npe, nR, nxos,
-                         kw, beta, W, w);
+    weight_rows<LATTICE, RW>(blockIdx.x - ntiles, gridDim.x - ntiles, ct, st, rad, npe, nR,
+                             nxos, kw, beta, W, w);
   }
 }
 
@@ -196,8 +198,9 @@ __host__ __device__ inline Stage stage_layout(int rows, int K, int ws) {
   return s;
 }
 
-// Pass 3 of B4: warps 0-7 consume, warp 8 produces.  G segments per stage.
-template <int KP>
+// Pass 3 of B4: warps 0-7 consume, warp 8 produces.  G segments per stage;
+// CLS the precision class.
+template <int KP, int CLS>
 __global__ void __launch_bounds__(kSegThreads)
 grid_seg_contract_kernel(const float* __restrict__ planes,  // (npe, nR, K)
                          float2* __restrict__ out,          // (K/2, nxos, nxos)
@@ -304,7 +307,7 @@ grid_seg_contract_kernel(const float* __restrict__ planes,  // (npe, nR, K)
     }
     expand_weights<kTile, false>(hdr, wt, ws, W, n, n, wcoord, &s_wx[0][0], &s_wy[0][0]);
     consumers_sync();
-    fma_rows<KP, kTile>(n, s_mask, &s_wx[0][0], &s_wy[0][0],
+    fma_rows<KP, kTile, CLS>(n, s_mask, &s_wx[0][0], &s_wy[0][0],
                         reinterpret_cast<const float*>(stage + lay.samp) + k0, K, kn, tx, ty,
                         acc);
     consumers_sync();  // the stage and s_wx, s_wy, s_mask are free
@@ -331,15 +334,16 @@ size_t tron_grid_seg_radial2d_workspace_bytes(int npe, int nR, int nxos, int K, 
 // aligned, as table_stride and the bulk path's K % 4 == 0 keep each
 // row's bytes a multiple of 16), margin the wedge
 // test's reach beyond the tile centre (ops/cull.py:seg_hits), slots the
-// partial slots the workspace holds (tron_grid_seg_radial2d_workspace_bytes).
+// partial slots the workspace holds (tron_grid_seg_radial2d_workspace_bytes),
+// cls the precision class.
 int tron_grid_seg_radial2d_planes(const void* planes, const void* ct, const void* st,
                                   const void* rad, void* out, int npe, int nR, int nxos,
                                   int K, float kw, float beta, float scale,
                                   const void* seg_start, int seg, float margin, int slots,
-                                  void* work, size_t work_size, void* stream) {
+                                  int cls, void* work, size_t work_size, void* stream) {
   Work w;
   const int W = window_of(kw);
-  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) || seg < 1 ||
+  if (bad_tile_args(npe, nR, nxos, K, kw, rad, work) || bad_class(cls) || seg < 1 ||
       seg > kChunkRows || seg > nR || slots < 1 || slots > kMaxSlots ||
       work_bytes(npe, nR, nxos, K, W, 2 * npe, false, slots, &w, static_cast<char*>(work)) >
           work_size) {
@@ -360,27 +364,35 @@ int tron_grid_seg_radial2d_planes(const void* planes, const void* ct, const void
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   const int T = tiles_of(nxos);
   const int blocks = T + weight_blocks(npe, nR, W);
+  // a bf16 class takes the weights rounded as kb_kernel's (kb.cuh)
+  auto list = [&](auto lattice, auto rw) {
+    grid_seg_list_kernel<decltype(lattice)::value, decltype(rw)::value>
+        <<<blocks, kThreads, 0, strm>>>(c, s, r, npe, nR, nxos, kw, beta, W, seg, margin, ss, T, w);
+  };
+  using F = std::false_type;
+  using Tr = std::true_type;
   if (r == nullptr) {
-    grid_seg_list_kernel<false><<<blocks, kThreads, 0, strm>>>(c, s, r, npe, nR, nxos, kw, beta,
-                                                                W, seg, margin, ss, T, w);
+    if (cls == kF32) list(F{}, F{}); else list(F{}, Tr{});
   } else {
-    grid_seg_list_kernel<true><<<blocks, kThreads, 0, strm>>>(c, s, r, npe, nR, nxos, kw, beta,
-                                                               W, seg, margin, ss, T, w);
+    if (cls == kF32) list(Tr{}, F{}); else list(Tr{}, Tr{});
   }
   grid_tile_items_kernel<<<1, kScanThreads, 0, strm>>>(T, slots, seg, w);
   int code = 0;
   with_channel_block(K, [&](auto kp) {
     constexpr int KP = decltype(kp)::value;
-    const cudaError_t e = cudaFuncSetAttribute(
-        grid_seg_contract_kernel<KP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dyn));
-    if (e != cudaSuccess) {
-      code = static_cast<int>(e);
-      return;
-    }
-    const dim3 grid(max_items(T, slots), (K + kMaxChannels - 1) / kMaxChannels);
-    grid_seg_contract_kernel<KP><<<grid, kSegThreads, dyn, strm>>>(
-        p, o, npe, nR, nxos, K, W, scale, seg, G, bulk, T, w);
+    with_class(cls, [&](auto c) {
+      constexpr int CLS = decltype(c)::value;
+      const cudaError_t e = cudaFuncSetAttribute(
+          grid_seg_contract_kernel<KP, CLS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(dyn));
+      if (e != cudaSuccess) {
+        code = static_cast<int>(e);
+        return;
+      }
+      const dim3 grid(max_items(T, slots), (K + kMaxChannels - 1) / kMaxChannels);
+      grid_seg_contract_kernel<KP, CLS><<<grid, kSegThreads, dyn, strm>>>(
+          p, o, npe, nR, nxos, K, W, scale, seg, G, bulk, T, w);
+    });
   });
   if (code != 0) return code;
   launch_reduce(o, nxos, K, scale, slots, w, strm);

@@ -1,7 +1,7 @@
 // The tile machinery shared by the three gridding kernels (the contract is
 // stated in grid_radial2d.cuh):
 //   - grid_radial2d.cu (B1 _win_kernel, B2 _grid_kernel): tile bands, item
-//     scan, fp32 FMA contraction, reduce;
+//     scan, FMA contraction at the precision class, reduce;
 //   - grid_radial2d_batched.cu (B5 _win_kernel_batched): B1's bands, items
 //     and reduce, its own tensor-core contraction;
 //   - grid_seg_radial2d.cu (B4 _seg_kernel): static segments and wedge-
@@ -20,6 +20,7 @@
 #include <cstdint>
 
 #include "grid_radial2d.cuh"
+#include "precision.cuh"
 
 namespace {
 
@@ -194,8 +195,9 @@ __device__ void tile_list(int t, const float* __restrict__ ct,
 // keeps the run of its nonzero weights (KB is positive on all of its
 // support), from its first pixel on: the row's header is (first column,
 // first row, number of columns, number of rows), and its weights follow
-// from there, zeros after the run.
-template <bool LATTICE>
+// from there, zeros after the run.  RW: the weights rounded as kb_kernel
+// rounds them (kb.cuh; the bf16 classes).
+template <bool LATTICE, bool RW>
 __device__ void weight_rows(int b, int nb, const float* __restrict__ ct,
                             const float* __restrict__ st,
                             const float* __restrict__ rad, int npe, int nR,
@@ -231,7 +233,7 @@ __device__ void weight_rows(int b, int nb, const float* __restrict__ ct,
       const float v = __fmul_rn(rf, y_axis ? __ldg(st + p) : __ldg(ct + p));
       start = static_cast<int>(ceilf(v - kw)) - 1;
       if (idx < W) {
-        wv = kb_weight(__fsub_rn(v, static_cast<float>(start + idx)), inv_kw, amp, beta);
+        wv = kb_weight<RW>(__fsub_rn(v, static_cast<float>(start + idx)), inv_kw, amp, beta);
       }
     }
     const unsigned nz = (__ballot_sync(0xffffffffu, wv != 0.0f) >> axis_lane0) & ((1u << W) - 1u);
@@ -257,7 +259,7 @@ inline int weight_blocks(int npe, int nR, int W) {
 }
 
 // Pass 1 of B1 and B5: the tile bands, then the weight table.
-template <bool LATTICE>
+template <bool LATTICE, bool RW>
 __global__ void __launch_bounds__(kThreads)
 grid_tile_band_kernel(const float* __restrict__ ct, const float* __restrict__ st,
                       const float* __restrict__ rad, int npe, int nR, int nxos,
@@ -265,8 +267,8 @@ grid_tile_band_kernel(const float* __restrict__ ct, const float* __restrict__ st
   if (static_cast<int>(blockIdx.x) < ntiles) {
     tile_list<LATTICE>(blockIdx.x, ct, st, npe, nR, nxos, kw, w);
   } else {
-    weight_rows<LATTICE>(blockIdx.x - ntiles, gridDim.x - ntiles, ct, st, rad, npe,
-                         nR, nxos, kw, beta, W, w);
+    weight_rows<LATTICE, RW>(blockIdx.x - ntiles, gridDim.x - ntiles, ct, st, rad, npe,
+                             nR, nxos, kw, beta, W, w);
   }
 }
 
@@ -506,10 +508,13 @@ __device__ __forceinline__ void expand_weights(const int4* __restrict__ hdr,
 }
 
 // Pass 3, the consumer warps (B1, B4): each thread owns pixel (tx, ty) and
-// adds wy * wx * s over the rows [0, n) in order, fp32 FMA; a warp holds
-// tile rows 2v and 2v + 1 and walks only the rows whose mask has bit v, so
-// the skip is warp-uniform.  Sample row j at samp + j * ss.
-template <int KP, int WXS>
+// adds wy * wx * s over the rows [0, n) in order; a warp holds tile rows 2v
+// and 2v + 1 and walks only the rows whose mask has bit v, so the skip is
+// warp-uniform.  Sample row j at samp + j * ss.  CLS float32: one fp32 FMA
+// of wt = wy * wx per channel.  A bf16 class takes JAX's operands (U =
+// s * wy formed in fp32, A = wx, grid_pallas.py:106-144) and adds
+// class_fma's terms of A and U; bf16x2's lo term is A's (Uh Al).
+template <int KP, int WXS, int CLS>
 __device__ __forceinline__ void fma_rows(int n, const unsigned* __restrict__ s_mask,
                                          const float* __restrict__ s_wx,
                                          const float* __restrict__ s_wy,
@@ -523,11 +528,22 @@ __device__ __forceinline__ void fma_rows(int n, const unsigned* __restrict__ s_m
     while (bits != 0u) {
       const int j = r0 + __ffs(bits) - 1;
       bits &= bits - 1u;
-      const float wt = s_wy[j * kTile + ty] * s_wx[j * WXS + tx];
       const float* sv = samp + j * ss;
+      if constexpr (CLS == kF32) {
+        const float wt = s_wy[j * kTile + ty] * s_wx[j * WXS + tx];
 #pragma unroll
-      for (int k = 0; k < KP; ++k) {
-        if (k < kn) acc[k] = fmaf(wt, sv[k], acc[k]);
+        for (int k = 0; k < KP; ++k) {
+          if (k < kn) acc[k] = fmaf(wt, sv[k], acc[k]);
+        }
+      } else {
+        const float wy = s_wy[j * kTile + ty];
+        const float wx = s_wx[j * WXS + tx];
+        const float ah = bf16r(wx);
+        const float al = CLS == kBF16 ? 0.0f : bf16_lo(wx, ah);
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          if (k < kn) acc[k] = class_fma<CLS, true>(ah, al, __fmul_rn(sv[k], wy), acc[k]);
+        }
       }
     }
   }
@@ -604,15 +620,15 @@ inline void launch_reduce(float2* out, int nxos, int K, float scale, int slots, 
 }
 
 // Passes 1, 2, then the caller's contraction `contract(grid)` on the item
-// grid, then 4: the tile-band kernels (B1, B5).
-template <bool LATTICE, typename F>
+// grid, then 4: the tile-band kernels (B1, B5).  RW as weight_rows.
+template <bool LATTICE, bool RW, typename F>
 void launch_band_passes(const float* ct, const float* st, const float* rad, float2* out,
                         int npe, int nR, int nxos, int K, float kw, float beta, float scale,
                         const Work& w, cudaStream_t stream, F&& contract) {
   const int T = tiles_of(nxos);
   const int slots = slots_of(npe, nR);
   const int W = window_of(kw);
-  grid_tile_band_kernel<LATTICE><<<T + weight_blocks(npe, nR, W), kThreads, 0, stream>>>(
+  grid_tile_band_kernel<LATTICE, RW><<<T + weight_blocks(npe, nR, W), kThreads, 0, stream>>>(
       ct, st, rad, npe, nR, nxos, kw, beta, W, T, w);
   grid_tile_items_kernel<<<1, kScanThreads, 0, stream>>>(T, slots, 1, w);
   contract(dim3(max_items(T, slots), (K + kMaxChannels - 1) / kMaxChannels));

@@ -54,11 +54,20 @@ def _kernel_backend(cfg: ReconConfig, device: torch.device) -> bool:
     return True
 
 
+def kernel_class(cfg: ReconConfig, device: torch.device) -> str:
+    """The precision class the kernel wrappers get on ``device``: on the
+    card ``cfg.matmul_dtype``, as JAX's kernels take it on the TPU; on the
+    CPU "float32", since JAX's "auto" backend off the TPU runs its jnp
+    gridder and degridder, which have no class (`tron_tpu/nufft.py:65-78`,
+    `:147-165`), so the port's CPU path stays JAX's."""
+    return cfg.matmul_dtype if device.type == "cuda" else "float32"
+
+
 def _grid_backend(cfg: ReconConfig, device: torch.device):
     if _kernel_backend(cfg, device):
         return functools.partial(
-            grid_cuda.grid_radial2d, matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk,
-            tuning=cfg.kernel_tuning(),
+            grid_cuda.grid_radial2d, matmul_dtype=kernel_class(cfg, device),
+            pe_chunk=cfg.pe_chunk, tuning=cfg.kernel_tuning(),
         )
     return functools.partial(grid_radial2d, pe_chunk=cfg.pe_chunk)
 
@@ -114,7 +123,8 @@ def nufft_adjoint_exact(
     if _kernel_backend(cfg, data.device):
         kgrid = grid_cuda.grid_radial2d_exact(
             flat, angles, nxos, cfg.kernwidth, beta,
-            matmul_dtype=cfg.matmul_dtype, pe_chunk=cfg.pe_chunk, tuning=cfg.kernel_tuning(),
+            matmul_dtype=kernel_class(cfg, data.device), pe_chunk=cfg.pe_chunk,
+            tuning=cfg.kernel_tuning(),
         )
     else:
         kgrid = grid_radial2d(
@@ -152,8 +162,8 @@ def nufft_forward(
     batch = kgrid.shape[:-2]
     flat = kgrid.reshape((-1,) + tuple(kgrid.shape[-2:]))
     out = degrid_cuda.degrid_radial2d(
-        flat, angles, nro, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype, wrap=wrap,
-        tuning=cfg.kernel_tuning(),
+        flat, angles, nro, cfg.kernwidth, beta, matmul_dtype=kernel_class(cfg, img.device),
+        wrap=wrap, tuning=cfg.kernel_tuning(),
     )
     return out.reshape(tuple(batch) + tuple(out.shape[-2:]))
 
@@ -176,7 +186,7 @@ def nufft_adjoint_planes(
     n = int(round(nxos / cfg.gridos))
     beta = kb_beta(cfg.kernwidth, cfg.gridos, cfg.beatty)
     kgrid = grid_cuda.grid_radial2d_planes(
-        planes, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype,
-        tuning=cfg.kernel_tuning(),
+        planes, angles, nxos, cfg.kernwidth, beta,
+        matmul_dtype=kernel_class(cfg, planes.device), tuning=cfg.kernel_tuning(),
     )
     return _adjoint_epilogue(kgrid, n, cfg, beta)

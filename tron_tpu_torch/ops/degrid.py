@@ -21,6 +21,7 @@ import functools
 import torch
 
 from tron_tpu_torch.kernels.kb import kb_kernel
+from tron_tpu_torch.ops.precision import bf16
 
 
 @functools.cache
@@ -66,6 +67,7 @@ def degrid_radial2d(
     kernwidth: float,
     beta: float,
     wrap: bool = True,
+    matmul_dtype: str = "float32",
 ) -> torch.Tensor:
     """kgrid: (..., n, n) centered complex k-space; angles: (npe,).  Returns
     samples (..., npe, nro).
@@ -73,7 +75,15 @@ def degrid_radial2d(
     ``wrap=True`` treats the grid as periodic (index mod n, the reference's
     `src/tron.cu:569-570`); ``wrap=False`` clips KB footprints at the grid
     edge, which makes degrid the exact transpose of the gridding op (which
-    clips), as the CGNR operator pair requires."""
+    clips), as the CGNR operator pair requires.
+
+    ``matmul_dtype`` is the precision class of the JAX kernel: "float32"
+    weighs each neighbour by wx * wy; a bf16 class sums each neighbour row
+    first, v = sum_x A G with A = wx and G rounded to bfloat16 and split
+    (bfloat16 Ah Gh; bf16x2 Ah Gh + Ah Gl; bf16x3 Ah Gh + Ah Gl + Al Gh,
+    `tron_tpu/ops/degrid_pallas.py:120-134`), then adds wy * v in fp32."""
+    if matmul_dtype != "float32":
+        return _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype)
     n = kgrid.shape[-1]
     batch = tuple(kgrid.shape[:-2])
     flat = kgrid.reshape(batch + (n * n,))
@@ -97,6 +107,47 @@ def degrid_radial2d(
             idx = torch.remainder(yu, n) * n + iu           # row-major (y, x)
             vals = torch.index_select(flat, -1, idx.reshape(-1))
             out = out + vals.reshape(batch + idx.shape) * w.to(kgrid.dtype)
+    return out
+
+
+def _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype) -> torch.Tensor:
+    """``degrid_radial2d`` at a bf16 class: rows dy outer, each row's sum
+    over x at the class, then times wy."""
+    n = kgrid.shape[-1]
+    batch = tuple(kgrid.shape[:-2])
+    flat = kgrid.reshape(batch + (n * n,))
+    gh = bf16(flat)
+    gl = bf16(flat - gh)
+    xs, ys = _positions(angles, nro, n)
+    x0 = torch.ceil(xs - kernwidth).to(torch.int64)
+    y0 = torch.ceil(ys - kernwidth).to(torch.int64)
+    noff = int(2 * kernwidth) + 1
+
+    def weight(u, pos):
+        w = kb_kernel(u.to(torch.float32) - pos, kernwidth, beta)
+        return w if wrap else w * ((u >= 0) & (u < n))
+
+    out = kgrid.new_zeros(batch + (angles.shape[0], nro))
+    for dy in range(noff):
+        yu = y0 + dy
+        wy = weight(yu, ys)
+        v = kgrid.new_zeros(out.shape)
+        for dx in range(noff):
+            xu = x0 + dx
+            a = weight(xu, xs)
+            ah = bf16(a)
+            idx = (torch.remainder(yu, n) * n + torch.remainder(xu, n)).reshape(-1)
+
+            def near(g):
+                return torch.index_select(g, -1, idx).reshape(batch + xu.shape)
+
+            vh = near(gh)
+            v = v + vh * ah
+            if matmul_dtype in ("bf16x2", "bf16x3"):
+                v = v + near(gl) * ah
+            if matmul_dtype == "bf16x3":
+                v = v + vh * bf16(a - ah)
+        out = out + v * wy
     return out
 
 

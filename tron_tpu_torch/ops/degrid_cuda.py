@@ -23,7 +23,9 @@ import torch
 from tron_tpu_torch import _build
 from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_radial2d_plain
 from tron_tpu_torch.ops.degrid import lattice_radii
-from tron_tpu_torch.ops.grid_cuda import MATMUL_DTYPES, profiler_range
+from tron_tpu_torch.ops.grid_cuda import profiler_range
+from tron_tpu_torch.ops.precision import MATMUL_DTYPES
+from tron_tpu_torch.ops.precision import check as _check_dtype
 
 LAUNCHES = 0
 
@@ -87,26 +89,28 @@ def degrid_radial2d(
     """Forward degridding (counterpart of ``degrid_radial2d_pallas``, with
     the wrap that the Pallas kernel leaves to a patch): kgrid (C, n, n) or
     (n, n) complex -> samples (C, npe, nro) (or (npe, nro)) complex64.
-    ``matmul_dtype`` names the JAX precision class; the kernel computes in
-    fp32 for every class.  ``tuning.batched`` launches the same kernel: the
+    ``matmul_dtype`` is the JAX precision class, computed by the kernel (and
+    by the plain version on a CPU tensor) as `_degrid_kernel` computes it
+    (`ops/degrid.py`).  ``tuning.batched`` launches the same kernel: the
     Pallas kernel's batched mode is a static unroll over its neighbours
     (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls each
     neighbour row's noff columns statically already."""
-    if matmul_dtype not in MATMUL_DTYPES:
-        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+    _check_dtype(matmul_dtype)
     if kgrid.dim() == 2:
         return degrid_radial2d(
             kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap, tuning
         )[0]
     if kgrid.device.type == "cpu":
-        return degrid_radial2d_plain(kgrid, angles, nro, kernwidth, beta, wrap=wrap)
+        return degrid_radial2d_plain(
+            kgrid, angles, nro, kernwidth, beta, wrap=wrap, matmul_dtype=matmul_dtype
+        )
     if kgrid.device.type != "cuda":
         raise ValueError(f"no degridding kernel for device {kgrid.device}")
     _check(kgrid, angles, nro, kernwidth)
-    return _launch(to_grid_planes(kgrid), angles, nro, kernwidth, beta, wrap)
+    return _launch(to_grid_planes(kgrid), angles, nro, kernwidth, beta, wrap, matmul_dtype)
 
 
-def _launch(gplanes, angles, nro, kernwidth, beta, wrap) -> torch.Tensor:
+def _launch(gplanes, angles, nro, kernwidth, beta, wrap, matmul_dtype) -> torch.Tensor:
     global LAUNCHES
     built = _build.load()
     n, _, K = gplanes.shape
@@ -119,7 +123,7 @@ def _launch(gplanes, angles, nro, kernwidth, beta, wrap) -> torch.Tensor:
         code = built.lib.tron_degrid_radial2d_planes(
             gplanes.data_ptr(), ct.data_ptr(), st.data_ptr(), rad.data_ptr(),
             out.data_ptr(), npe, nro, n, K, int(2 * kernwidth) + 1, int(bool(wrap)),
-            float(kernwidth), float(beta),
+            float(kernwidth), float(beta), MATMUL_DTYPES.index(matmul_dtype),
             torch.cuda.current_stream(gplanes.device).cuda_stream,
         )
     _build.check(built.lib, code, "degrid_radial2d kernel")

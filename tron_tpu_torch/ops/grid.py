@@ -9,8 +9,12 @@ point (`src/tron.cu:465-536`):
                                              * data[pe, ridx(r)]
 
 Per spoke the weight factorizes, so a chunk of spokes is one matrix product
-(U = s * B)^T @ A.  This is the plain version of the CUDA gridding kernel
-(`ops/grid_cuda.py`): its CPU twin and its oracle on the card.
+(U = s * B)^T @ A.  This is the plain version of the CUDA gridding kernels
+(`ops/grid_cuda.py`): their CPU twin and their oracle on the card, at each
+precision class of the JAX kernels (``matmul_dtype``): "float32" multiplies
+the fp32 operands, a bf16 class rounds U and A to bfloat16 through
+``torch.bfloat16`` casts and adds the split products of
+`precision.class_dot`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from tron_tpu_torch.kernels.kb import kb_kernel
 from tron_tpu_torch.ops import cull
 from tron_tpu_torch.ops.degrid import lattice_radii
+from tron_tpu_torch.ops.precision import class_dot
 
 
 def _radius_map(nxos: int, nro: int, device=None):
@@ -50,9 +55,10 @@ def _grid_dense(
     kernwidth: float,
     beta: float,
     pe_chunk: int,
+    matmul_dtype: str = "float32",
 ) -> torch.Tensor:
     """Real sample planes s (npe, nR, K) at radii rr (nR,) -> (K, nxos, nxos)
-    f32 grids, scaled by 1/(nxos*npe)."""
+    f32 grids, scaled by 1/(nxos*npe), at the class ``matmul_dtype``."""
     npe, nR, K = s.shape
     coord = (torch.arange(nxos, device=s.device) - nxos // 2).to(torch.float32)
     ct = torch.cos(angles.to(torch.float32))
@@ -65,7 +71,7 @@ def _grid_dense(
         A = kb_kernel(kx - coord, kernwidth, beta)              # (P, nR, nx)
         B = kb_kernel(ky - coord, kernwidth, beta)              # (P, nR, ny)
         U = s[sl].permute(2, 0, 1)[..., None] * B               # (K, P, nR, ny)
-        acc += U.reshape(K, -1, nxos).transpose(1, 2) @ A.reshape(-1, nxos)
+        acc += class_dot(U.reshape(K, -1, nxos).transpose(1, 2), A.reshape(-1, nxos), matmul_dtype)
     return acc * (1.0 / (nxos * npe))
 
 
@@ -77,6 +83,7 @@ def grid_radial2d(
     beta: float,
     pe_chunk: int = 4,
     raw_rows: bool = False,
+    matmul_dtype: str = "float32",
 ) -> torch.Tensor:
     """data: (..., npe, nro) complex radial samples (already density-
     compensated); angles: (npe,).  Returns (..., nxos, nxos) complex centered
@@ -86,7 +93,8 @@ def grid_radial2d(
     ``raw_rows=True`` grids each readout at its exact radius
     ((ro/nro - 1/2) * nxos, the degridder's radius table `lattice_radii`)
     instead of the trunc-resample onto integer grid radii (identical to the
-    default path when nro == nxos is a power of two)."""
+    default path when nro == nxos is a power of two).  ``matmul_dtype``: the
+    precision class (`class_dot`)."""
     *batch, npe, nro = data.shape
     if raw_rows:
         rr = lattice_radii(nro, nxos, data.device)
@@ -99,7 +107,7 @@ def grid_radial2d(
     # complex channels -> interleaved real planes (npe, nR, 2*nb)
     s = torch.view_as_real(ds.reshape(nb, npe, nR)).permute(1, 2, 0, 3)
     s = s.reshape(npe, nR, 2 * nb)
-    g = _grid_dense(s, rr, angles, nxos, kernwidth, beta, pe_chunk)
+    g = _grid_dense(s, rr, angles, nxos, kernwidth, beta, pe_chunk, matmul_dtype)
     g = g.reshape(nb, 2, nxos, nxos).permute(0, 2, 3, 1).contiguous()
     return torch.view_as_complex(g).reshape(tuple(batch) + (nxos, nxos))
 
@@ -111,14 +119,16 @@ def grid_radial2d_planes_plain(
     kernwidth: float,
     beta: float,
     pe_chunk: int = 8,
+    matmul_dtype: str = "float32",
 ) -> torch.Tensor:
     """Planes form: (npe, nxos, 2C) f32 sample planes (see
     ``grid_cuda.to_sample_planes``; channel 2c is coil c's real part, 2c+1
     its imaginary part) -> (C, nxos, nxos) complex64, scaled by
-    1/(nxos*npe).  Row 0 (radius -nxos/2) is never gridded."""
+    1/(nxos*npe), at the class ``matmul_dtype``.  Row 0 (radius -nxos/2) is
+    never gridded."""
     npe, nR, K = planes.shape
     rr = (torch.arange(nR, device=planes.device) - nxos // 2).to(torch.float32)
-    g = _grid_dense(planes[:, 1:], rr[1:], angles, nxos, kernwidth, beta, pe_chunk)
+    g = _grid_dense(planes[:, 1:], rr[1:], angles, nxos, kernwidth, beta, pe_chunk, matmul_dtype)
     return _complex_grids(g)
 
 
@@ -138,6 +148,7 @@ def grid_radial2d_planes_culled(
     rad: torch.Tensor | None = None,
     tile: int = cull.TILE,
     seg_chunk: int = 512,
+    matmul_dtype: str = "float32",
 ) -> torch.Tensor:
     """The plain version of B4 (`csrc/grid_seg_radial2d.cu`, the port of
     `_seg_kernel`) in its decomposition: each tile sums the rows of its
@@ -146,7 +157,8 @@ def grid_radial2d_planes_culled(
     with the planes gridder's separable KB weights.  Same contract as
     ``grid_radial2d_planes_plain``; ``rad`` None grids integer radii (nR ==
     nxos), else row u sits at radius rad[u] (the exact lattice).  Row 0 is
-    never gridded."""
+    never gridded.  ``matmul_dtype``: the precision class of each term, A =
+    the x-weights, U = samples * y-weights (`class_dot`)."""
     npe, nR, K = planes.shape
     dev = planes.device
     exact = rad is not None
@@ -171,6 +183,12 @@ def grid_radial2d_planes_culled(
         wx = torch.where((rows[sl] == 0)[..., None], 0.0, wx)
         wy = kb_kernel(r * st[spoke[sl], None, None] - Y, kernwidth, beta)
         s = planes[spoke[sl, None], rows[sl]]                           # (s, seg, K)
-        acc.index_add_(0, ti[sl] * n + tj[sl], torch.einsum("srx,sry,srk->skyx", wx, wy, s))
+        if matmul_dtype == "float32":
+            part = torch.einsum("srx,sry,srk->skyx", wx, wy, s)
+        else:  # per segment: U (rows, (y, k)) against A (rows, x)
+            U = (wy[..., None] * s[:, :, None, :]).reshape(s.shape[0], seg, -1)
+            part = class_dot(U.transpose(1, 2), wx, matmul_dtype)       # (s, y*k, x)
+            part = part.reshape(s.shape[0], tile, K, tile).transpose(1, 2)
+        acc.index_add_(0, ti[sl] * n + tj[sl], part)
     g = acc.reshape(n, n, K, tile, tile).permute(2, 0, 3, 1, 4).reshape(K, n * tile, n * tile)
     return _complex_grids(g[:, :nxos, :nxos] * (1.0 / (nxos * npe)))

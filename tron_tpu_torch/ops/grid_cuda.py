@@ -10,16 +10,19 @@ contract of `csrc/grid_radial2d.cuh`:
   lists, item table, partial sums) is allocated here with ``torch.empty``;
 - ``grid_radial2d_batched`` (`csrc/grid_radial2d_batched.cu`): the same
   passes and workspace with the contraction a static unroll on tensor
-  cores (3xTF32 ``mma.sync``), which replaces `_win_kernel_batched`, taken
-  when ``tuning.batched`` is set (``KernelTuning(batched=True)``,
-  ``TRON_BATCHED=1``);
+  cores (bf16 ``mma.sync`` at the bf16 classes, 3xTF32 at float32), which
+  replaces `_win_kernel_batched`, taken when ``tuning.batched`` is set
+  (``KernelTuning(batched=True)``, ``TRON_BATCHED=1``);
 - ``grid_seg_radial2d`` (`csrc/grid_seg_radial2d.cu`): the contraction
   over static per-(tile, sign) radius segments and wedge-culled spoke
   lists (`ops/cull.py`), staged by bulk async copies, which replaces
   `_seg_kernel`, taken with ``windowed=False``.
 
-All three sum the same nonzero fp32 terms; B4 in B1's order, regrouped at
-item boundaries, B5 as split TF32 products.
+Each kernel computes the precision class ``matmul_dtype`` it is handed, as
+its Pallas twin does on the TPU (`ops/precision.py`; `gridder_class` applies
+JAX's dispatch rules for B4 and B2).  At a class all three sum the same
+nonzero terms; B4 in B1's order, regrouped at item boundaries, B5 as
+tensor-core products (split TF32 at float32).
 
 A CUDA tensor launches a kernel or raises; a CPU tensor takes the kernels'
 plain version (`ops/grid.py`: the planes gridder, or for ``windowed=False``
@@ -49,14 +52,11 @@ from tron_tpu_torch.ops.grid import (
     grid_radial2d_planes_plain,
 )
 from tron_tpu_torch.ops.grid import grid_radial2d as grid_radial2d_plain
+from tron_tpu_torch.ops.precision import MATMUL_DTYPES, bf16
+from tron_tpu_torch.ops.precision import check as _check_dtype
 
 KERNELS = ("grid_radial2d", "grid_radial2d_batched", "grid_seg_radial2d")
 LAUNCH_COUNTS = dict.fromkeys(KERNELS, 0)
-
-# Precision classes of the JAX gridder.  They exist for the TPU's bf16 MXU;
-# the CUDA kernels compute every one of them to float32 grade (B5 as
-# 3xTF32 products).
-MATMUL_DTYPES = ("bfloat16", "bf16x2", "bf16x3", "float32")
 
 # The tile kernels' weight windows, floor(2*kernwidth) + 3 pixels per axis,
 # take at most 16 lanes each (csrc/grid_tiles.cuh).
@@ -135,9 +135,29 @@ def _check_planes(
         raise ValueError(f"angles on {angles.device}, planes on {planes.device}")
 
 
-def _check_dtype(matmul_dtype: str) -> None:
-    if matmul_dtype not in MATMUL_DTYPES:
-        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}")
+def gridder_class(
+    nxos: int, matmul_dtype: str, windowed: bool = True, exact: bool = False
+) -> tuple[str, bool]:
+    """The class the gridding kernels compute for JAX's gridder called at
+    ``matmul_dtype``, and whether the samples are rounded to bfloat16 first,
+    by JAX's dispatch (`grid_pallas.py:576-591`):
+
+    - a grid that tiles runs `_win_kernel` / `_win_kernel_batched` at the
+      class, or with ``windowed=False`` `_seg_kernel`, which takes bf16x2 as
+      bf16x3 (`grid_pallas.py:735-738`);
+    - any other grid runs `_grid_kernel`, which at bfloat16 rounds the
+      samples to bfloat16 first and runs every other class in fp32
+      (`grid_pallas.py:832-833`); on the exact lattice JAX grids it with its
+      dense raw-rows gridder, which has no class (`tron_tpu/nufft.py:147-165`).
+    """
+    _check_dtype(matmul_dtype)
+    if nxos % 128 == 0 and nxos // 128 >= 2:  # at least two 128-pixel tiles
+        if not windowed and matmul_dtype == "bf16x2":
+            return "bf16x3", False
+        return matmul_dtype, False
+    if matmul_dtype == "bfloat16" and not exact:
+        return "bfloat16", True
+    return "float32", False
 
 
 def grid_radial2d_planes(
@@ -152,19 +172,23 @@ def grid_radial2d_planes(
 ) -> torch.Tensor:
     """Adjoint gridding from sample planes (npe, nxos, 2C) f32 (see
     to_sample_planes).  Returns (C, nxos, nxos) complex64 scaled by
-    1/(nxos*npe).  ``matmul_dtype`` names the JAX precision class; the
-    kernels compute to fp32 grade for every class.  ``windowed=False``
-    takes the segmented kernel (B4); ``tuning.batched`` the tensor-core
-    one (B5)."""
-    _check_dtype(matmul_dtype)
+    1/(nxos*npe).  ``matmul_dtype`` is the JAX precision class, computed as
+    `gridder_class` says.  ``windowed=False`` takes the segmented kernel
+    (B4); ``tuning.batched`` the tensor-core one (B5)."""
+    cls, round_samples = gridder_class(nxos, matmul_dtype, windowed)
     if planes.device.type == "cpu":
+        if round_samples:
+            planes = bf16(planes)
         if not windowed:
-            return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta)
-        return grid_radial2d_planes_plain(planes, angles, nxos, kernwidth, beta)
+            return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta,
+                                               matmul_dtype=cls)
+        return grid_radial2d_planes_plain(planes, angles, nxos, kernwidth, beta, matmul_dtype=cls)
     if planes.device.type != "cuda":
         raise ValueError(f"no gridding kernel for device {planes.device}")
     _check_planes(planes, angles, nxos)
-    return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning)
+    if round_samples:
+        planes = bf16(planes)
+    return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning, cls)
 
 
 @functools.cache
@@ -185,8 +209,11 @@ def _segments(nxos: int, kernwidth: float, nR: int | None, device) -> tuple[torc
     return flat.reshape(-1).to(torch.int32).to(device), seg
 
 
-def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> torch.Tensor:
-    """rad None: integer radii (nR == nxos); else the (nR,) row radii."""
+def _launch(
+    planes, angles, nxos, kernwidth, beta, rad, windowed, tuning, cls="float32"
+) -> torch.Tensor:
+    """rad None: integer radii (nR == nxos); else the (nR,) row radii; cls
+    the class the kernel computes."""
     if kernwidth >= MAX_KERNWIDTH:
         raise ValueError(f"the gridding kernels take kernwidth < {MAX_KERNWIDTH}, got {kernwidth}")
     built = _build.load()
@@ -201,6 +228,7 @@ def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> tor
         None if rad is None else rad.data_ptr(), out.data_ptr(),
         npe, nR, nxos, K, kw, float(beta), 1.0 / (nxos * npe),
     )
+    code = MATMUL_DTYPES.index(cls)
     if not windowed:
         lattice = None if rad is None else nR
         starts, seg = _segments(nxos, kw, lattice, planes.device)
@@ -213,11 +241,11 @@ def _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning) -> tor
         nbytes = _workspace_bytes(lib, "tron_grid_seg_radial2d_workspace_bytes", npe, nR,
                                   nxos, K, kw, slots)
         name, fn = "grid_seg_radial2d", lib.tron_grid_seg_radial2d_planes
-        extra = (starts.data_ptr(), seg, cull.wedge_margin(kw), slots)
+        extra = (starts.data_ptr(), seg, cull.wedge_margin(kw), slots, code)
     else:
         nbytes = _workspace_bytes(lib, "tron_grid_radial2d_workspace_bytes", npe, nR, nxos, K,
                                   kw)
-        extra = ()
+        extra = (code,)
         if tuning is not None and tuning.batched:
             name, fn = "grid_radial2d_batched", lib.tron_grid_radial2d_batched_planes
         else:
@@ -252,8 +280,11 @@ def grid_radial2d(
             tuning,
         )[0]
     if data.device.type == "cpu" and windowed:
-        _check_dtype(matmul_dtype)
-        return grid_radial2d_plain(data, angles, nxos, kernwidth, beta, pe_chunk=pe_chunk)
+        cls, round_samples = gridder_class(nxos, matmul_dtype)
+        return grid_radial2d_plain(
+            bf16(data) if round_samples else data, angles, nxos, kernwidth, beta,
+            pe_chunk=pe_chunk, matmul_dtype=cls,
+        )
     return grid_radial2d_planes(
         to_sample_planes(data, nxos), angles, nxos, kernwidth, beta, matmul_dtype,
         windowed, tuning,
@@ -277,13 +308,13 @@ def grid_radial2d_exact(
     radii (`src/tron.cu:517`), which makes it the transpose of the
     degridding kernel at any gridos.  Readout 0 is never gridded.  data:
     (C, npe, nro) complex; returns (C, nxos, nxos) complex64 scaled by
-    1/(nxos*npe)."""
-    _check_dtype(matmul_dtype)
+    1/(nxos*npe), at the class `gridder_class` gives the exact lattice."""
+    cls, _ = gridder_class(nxos, matmul_dtype, windowed, exact=True)
     nro = data.shape[-1]
     if data.device.type == "cpu" and windowed:
         return grid_radial2d_plain(
             drop_readout0(data), angles, nxos, kernwidth, beta, pe_chunk=pe_chunk,
-            raw_rows=True,
+            raw_rows=True, matmul_dtype=cls,
         )
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no gridding kernel for device {data.device}")
@@ -292,6 +323,7 @@ def grid_radial2d_exact(
     planes = _planes(data)
     rad = lattice_radii(nro, nxos, data.device)
     if data.device.type == "cpu":
-        return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta, rad=rad)
+        return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta, rad=rad,
+                                           matmul_dtype=cls)
     _check_planes(planes, angles, nxos, exact=True)
-    return _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning)
+    return _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning, cls)

@@ -24,6 +24,7 @@ from tron_tpu_torch.nufft import (
     _adjoint_epilogue,
     _grid_backend,
     _kernel_backend,
+    kernel_class,
     nufft_adjoint,
     nufft_adjoint_planes,
     nufft_forward,
@@ -196,11 +197,11 @@ def recon_frames_incremental(
         spoke_axis = 0
 
         tuning = cfg.kernel_tuning()
+        mm_class = kernel_class(cfg, data.device)
 
         def gridw(win, angles):
             return grid_cuda.grid_radial2d_planes(
-                win, angles, nxos, cfg.kernwidth, beta, matmul_dtype=cfg.matmul_dtype,
-                tuning=tuning,
+                win, angles, nxos, cfg.kernwidth, beta, matmul_dtype=mm_class, tuning=tuning,
             )
 
     else:

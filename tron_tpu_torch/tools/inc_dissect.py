@@ -39,7 +39,7 @@ import torch
 from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.device import describe, parse_device, synchronize
 from tron_tpu_torch.kernels.kb import kb_beta
-from tron_tpu_torch.nufft import _adjoint_epilogue, sdc_weights
+from tron_tpu_torch.nufft import _adjoint_epilogue, kernel_class, sdc_weights
 from tron_tpu_torch.ops import grid_cuda
 from tron_tpu_torch.ops.coil import coil_combine_sos
 from tron_tpu_torch.recon import incremental_scan, recon_frames_incremental
@@ -97,6 +97,7 @@ def grid_only(case: Case, s: float = 1.0) -> torch.Tensor:
     src = grid_cuda.to_sample_planes(dd * w, nxos)
     scheme = cfg.scheme_for("adjoint")
     tuning = cfg.kernel_tuning()
+    mm_class = kernel_class(cfg, dd.device)
 
     def window(pe0, m):
         return src.narrow(0, pe0, m)
@@ -106,8 +107,7 @@ def grid_only(case: Case, s: float = 1.0) -> torch.Tensor:
 
     def gridw(win, angles):
         return grid_cuda.grid_radial2d_planes(
-            win, angles, nxos, cfg.kernwidth, case.beta, matmul_dtype=cfg.matmul_dtype,
-            tuning=tuning,
+            win, angles, nxos, cfg.kernwidth, case.beta, matmul_dtype=mm_class, tuning=tuning,
         )
 
     def frame_image(kg):

@@ -12,9 +12,10 @@ the recon runs them:
 
 ``--no-windowed`` takes the segmented gridding kernel (B4), ``--batched`` the
 tensor-core one (B5: ``KernelTuning(batched=True)``, as ``TRON_BATCHED=1``).
+``--dtype`` is the precision class the kernels compute (`ops/precision.py`).
 Times are CUDA-event times after a warm-up; the kernel that ran is read
 from the wrappers' launch counts.  ``--check`` prints frame 0's NRMSE
-against the plain torch version.  Needs a CUDA device.
+against the plain torch version at the same class.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from tron_tpu_torch.kernels.kb import kb_beta
 from tron_tpu_torch.ops import degrid_cuda, grid_cuda
 from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_plain
 from tron_tpu_torch.ops.grid import grid_radial2d as grid_plain
+from tron_tpu_torch.ops.precision import MATMUL_DTYPES, bf16
 from tron_tpu_torch.trajectory import spoke_angles
 
 KW = 2.0
@@ -43,7 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nc", type=int, default=6)
     p.add_argument("--nro", type=int, default=512)
     p.add_argument("--npe", type=int, default=204)
-    p.add_argument("--dtype", default="bfloat16", help="precision class (the kernels run fp32)")
+    p.add_argument("--dtype", default="bfloat16", choices=list(MATMUL_DTYPES),
+                   help="precision class the kernels compute (the plain version of "
+                   "--check computes the same class)")
     p.add_argument("--no-windowed", dest="windowed", action="store_false")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--check", action="store_true", help="NRMSE vs the plain torch version")
@@ -78,8 +82,11 @@ def make_case(args, device):
                 windowed=args.windowed, tuning=tuning,
             )
 
+        cls, round_samples = grid_cuda.gridder_class(nxos, args.dtype, args.windowed)
+
         def plain(f):
-            return grid_plain(x[f], angles[f], nxos, KW, beta)
+            d = bf16(x[f]) if round_samples else x[f]
+            return grid_plain(d, angles[f], nxos, KW, beta, matmul_dtype=cls)
     else:
         def fn(f):
             return degrid_cuda.degrid_radial2d(
@@ -88,7 +95,8 @@ def make_case(args, device):
             )
 
         def plain(f):
-            return degrid_plain(x[f], angles[f], nro, KW, beta, wrap=False)
+            return degrid_plain(x[f], angles[f], nro, KW, beta, wrap=False,
+                                matmul_dtype=args.dtype)
     return fn, plain, tuning
 
 
@@ -124,6 +132,7 @@ def main(argv=None) -> dict:
     msps = nf * args.nc * args.npe * args.nro / s / 1e6
     res = {
         "op": args.op, "frames": nf, "windowed": args.windowed, "batched": tuning.batched,
+        "dtype": args.dtype,
         "kernel": ",".join(ran), "launches": counts, "ms_per_frame": ms_frame,
         "msamples_per_s": msps, "device": torch.cuda.get_device_name(device),
     }
