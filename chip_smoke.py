@@ -8,7 +8,9 @@ Phases, one line each (any failure raises and exits non-zero):
   2 build    nvcc builds csrc/*.cu for sm_90a into build/tron_tpu_torch/;
              ptxas registers and spills per kernel and precision class; the
              library's SASS holds tensor-core MMAs in B5's contraction (bf16
-             at the bf16 classes, TF32 at float32) and bulk copies in B4's
+             at the bf16 classes, TF32 at float32) and bulk copies in B4's;
+             g++ builds the .ra helper (_native/ra_native.cpp), its bytes and
+             float16 conversion held to the Python path and numpy
   3 kernel   the CUDA gridding kernel (the tile kernel) vs its plain torch
              version on the card
   4 main     whole-body golden-angle sliding-window recon (6 coils, nro 512,
@@ -46,8 +48,10 @@ Phases, one line each (any failure raises and exits non-zero):
  18 stream   tron-torch -a -G -u 0.4 -d 21 --stream on the whole-body series
              written to a .ra (twice), with --incremental, --half and
              TRON_BATCHED=1, each vs the in-memory recon, with launch counts
-             by kernel and the host wall from file to file; then its stages
-             alone and the card's busy share over one profiled run
+             by kernel, the .ra helper's region reads and writes, and the
+             host wall from file to file; then its stages alone (the read
+             stage through the helper and through Python) and the card's
+             busy share over one profiled run
  19 kbench   python -m tron_tpu_torch.tools.kbench: default, --no-windowed,
              --batched and --op degrid (bfloat16, the default --dtype), and
              default and --batched at --dtype float32, each with --check, at
@@ -103,14 +107,25 @@ Phases, one line each (any failure raises and exits non-zero):
              4), and B2's rule on B1's kernel at nxos 128: each kernel vs its
              plain version at the same class on the card, its error against
              the float32 plain version beside the plain version's own, a
-             repeat bitwise, B2's and B4's class rules, device ms per class
+             repeat bitwise, B2's and B4's class rules, device ms per class;
+             B3's rule (float32 at every class on a grid that does not tile
+             and at an odd nro, bit for bit) at n 128 and at nro 255
+ 32 library  the kernels' function as one torch.sparse.mm of the KB
+             interpolation matrix as CSR (cuSPARSE SpMM, tools/library_call):
+             B1 on both lattices and B3 clip and wrap at whole-body width, B2
+             at nxos 128; each vs its plain version, a repeat, kernel,
+             library, library, kernel in turns at float32, device time in
+             the profiler, its bound, nonzeros, index width, build ms, and a
+             bfloat16 try; kbench --library (grid and degrid)
 Phases whose references are fp32 (the JAX goldens, the forward, CGNR and
 solver checks, the -3 forward, the dot tests, the classes' frame 0) pin
 matmul_dtype="float32"; the CLI phases compare like with like.
 Then the kernel table as one JSON line (each kernel's launches on its main
 paths, the recipes' processes of phase 30 left uncounted; error, ms, the
-passes' device ms, plain ms, bound and library call, and per class the
-device ms, the error against the plain version and the bound), the
+passes' device ms, plain ms, bound, and per class the device ms, the error
+against the plain version and the bound; phase 32's library call, its
+device ms, bound, nonzeros and build ms; B1, B4 and B5 share the gridding
+call, since they compute one function), the
 nvidia-smi line, and the result line {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -282,6 +297,30 @@ def main() -> int:
                 f"B5's {c} contraction holds no {want} HMMA: {sorted(hmma.get(c, ()))}")
     require({"UBLKCP", "SYNCS"} <= ops.get("grid_seg_contract_kernel", set()),
             "B4's contraction (grid_seg_contract_kernel) holds no bulk copy (UBLKCP) on an mbarrier")
+    # the C++ .ra helper (g++ on first use): its whole-file write and the
+    # float16 conversion against the Python path and numpy
+    from tron_tpu_torch.io import native as ra_native
+    from tron_tpu_torch.io import ra as ra_py
+
+    t0 = time.perf_counter()
+    ra_lib = ra_native.ensure_native()
+    ra_build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        a = np.random.default_rng(SEED).standard_normal((6, 1, 64, 40, 1)).astype(np.complex64)
+        ra_native.ra_write(a, os.path.join(tmp, "n.ra"))
+        ra_py.ra_write(a, os.path.join(tmp, "p.ra"))
+        with open(os.path.join(tmp, "n.ra"), "rb") as f1, open(os.path.join(tmp, "p.ra"), "rb") as f2:
+            same_bytes = f1.read() == f2.read()
+        read_back = np.array_equal(ra_native.ra_read(os.path.join(tmp, "p.ra")), a)
+    h = np.array([0.0, -0.0, 1.0 + 2.0**-11, 65520.0, 2.0**-25, 3 * 2.0**-25, np.inf, np.nan,
+                  1e-3], np.float32)
+    with np.errstate(over="ignore"):  # 65520 rounds to inf, as it should
+        f16_ok = np.array_equal(ra_native.f32_to_f16(h).view(np.uint16),
+                                h.astype(np.float16).view(np.uint16))
+    log("build", f".ra helper {os.path.relpath(ra_lib._name, ROOT)} (g++ {' '.join(ra_native.CXX_FLAGS)}) "
+        f"in {ra_build_s:.2f} s; write bytes equal to the Python path {same_bytes}, read back "
+        f"{read_back}, f32_to_f16 equal to numpy on ties, subnormals, overflow, inf, NaN {f16_ok}")
+    require(same_bytes and read_back and f16_ok, "the .ra helper disagrees with the Python path")
 
     # -- 3 kernel vs plain ---------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -480,23 +519,31 @@ def main() -> int:
     # trace mirrors on the device's timeline: not a kernel, not busy time
     wrapper_ranges = {*grid_cuda.KERNELS, "degrid_radial2d"}
 
-    def device_passes(fn, n=20, rx=grid_pass):
+    def device_passes(fn, n=20, rx=grid_pass, expect=1):
         """Device us per call of each kernel that ``fn`` launches whose name
         matches ``rx`` (by default the gridding passes), from the profiler
-        over n calls."""
+        over n calls.  A profile that holds fewer than ``expect`` such
+        kernels is taken again, up to three times in all: the card's
+        profiler has lost the device kernels of a whole session (PERF.md
+        §7); the callers still require every kernel."""
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return {rx.search(e.key).group(0): e.self_device_time_total / n
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)
-                and e.key not in wrapper_ranges}
+        for attempt in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            got = {rx.search(e.key).group(0): e.self_device_time_total / n
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)
+                   and e.key not in wrapper_ranges}
+            if len(got) >= expect:
+                break
+            log("profiler", f"session {attempt + 1} saw {sorted(got)} of {expect} kernels; again")
+        return got
 
     # the tile kernel's four passes (band and weight table, items, contract,
     # reduce), device time per frame from the profiler
-    passes = device_passes(kern)
+    passes = device_passes(kern, expect=4)
     kern_dev_ms = sum(passes.values()) / 1e3
     log("timing", f"whole-body tile kernel {kern_ms:.4f} ms per frame (PERF.md: the per-pixel "
         f"kernel it replaced took 0.7191 ms); device us per pass: "
@@ -921,7 +968,7 @@ def main() -> int:
     seg_plain_ms = 1e3 * (ts[0] + ts[5]) / 2
     seg_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, windowed=False), 50)
-    seg_passes = device_passes(segk)
+    seg_passes = device_passes(segk, expect=4)
     seg_dev_ms = sum(seg_passes.values()) / 1e3
     log("seg", f"one whole-body frame (nxos 512, 6 coils, 204 spokes): seg kernel {seg_ms:.4f} ms, tile "
         f"kernel {1e3 * (ts[1] + ts[4]) / 2:.4f} ms, culled plain {seg_plain_ms:.4f} ms "
@@ -958,7 +1005,7 @@ def main() -> int:
     bat_plain_ms = 1e3 * (tb[0] + tb[5]) / 2
     bat_delta_ms = 1e3 * timed(lambda: grid_cuda.grid_radial2d_planes(
         d42_planes, d42_ang, 512, kw, beta, tuning=bt), 50)
-    bat_passes = device_passes(batk)
+    bat_passes = device_passes(batk, expect=4)
     bat_dev_ms = sum(bat_passes.values()) / 1e3
     log("batched", f"one whole-body frame: batched kernel {bat_ms:.4f} ms, tile kernel "
         f"{1e3 * (tb[1] + tb[4]) / 2:.4f} ms, plain {bat_plain_ms:.4f} ms (plain, tile, batched, "
@@ -988,6 +1035,7 @@ def main() -> int:
         ):
             os.environ.update(env)
             grid_cuda.reset_launches()
+            io_calls = dict(ra_native.CALLS)
             t0 = time.perf_counter()
             try:
                 rc = cli.main(["-a", "-G", "-u", "0.4", "-d", str(SLIDE), "--stream", "-g", "0",
@@ -997,7 +1045,9 @@ def main() -> int:
                     os.environ.pop(k)
             wall = time.perf_counter() - t0
             counts = dict(grid_cuda.LAUNCH_COUNTS)
+            io_calls = {k: ra_native.CALLS[k] - v for k, v in io_calls.items()}
             require(rc == 0, f"{name}: exit {rc}")
+            require(all(io_calls.values()), f"{name}: the .ra helper was not used: {io_calls}")
             res = ra_read(fout)
             if "--half" in extra:
                 require(res.shape == (2, 1, 1, n_img, n_img, NZ) and res.dtype == np.float16,
@@ -1027,7 +1077,8 @@ def main() -> int:
             kernel = "grid_radial2d_batched" if env else "grid_radial2d"
             log("stream", f"tron-torch -a -G -u 0.4 -d {SLIDE} {name}: file to file "
                 f"{wall:.3f} s host wall = {NZ * NC * NRO * work / wall / 1e6:.1f} Msamples/s; launches "
-                f"{counts}; vs {what}: nrmse {e:.3e}, bitwise equal {same} on {card}")
+                f"{counts}; .ra helper calls {io_calls}; vs {what}: nrmse {e:.3e}, bitwise equal "
+                f"{same} on {card}")
             require(e <= 1e-5, f"{name}: nrmse {e:.3e} vs {what}")
             require(counts[kernel] == blocks * 64 and grid_cuda.LAUNCHES == counts[kernel],
                     f"{name}: launches {counts}, expected {blocks * 64} of {kernel}")
@@ -1059,6 +1110,24 @@ def main() -> int:
         hosts = [o.cpu().numpy() for o in bouts]
         t_d2h = time.perf_counter() - t0
         del bouts, hosts
+        # the read stage alone through the .ra helper and through Python
+        # seeks and reads, in turns (page cache warm): a record, no claim
+        t_read = {}
+        for nat in (True, False, False, True):
+            t0 = time.perf_counter()
+            wins = [ra_read_profiles(fin, z0 * SLIDE, nblk, native=nat) for z0 in z0s]
+            t_read.setdefault(nat, []).append(time.perf_counter() - t0)
+            if nat:
+                win_native = wins
+            else:
+                require(all(np.array_equal(u, v) for u, v in zip(win_native, wins)),
+                        "windowed reads: the helper and Python differ")
+            del wins
+        del win_native
+        log("stream", f"read stage alone ({len(z0s)} windows of {nblk} spokes, "
+            f"{len(z0s) * nblk * NC * NRO * 8 / 1e6:.0f} MB): .ra helper "
+            f"{[round(t, 4) for t in t_read[True]]} s, Python {[round(t, 4) for t in t_read[False]]} s "
+            f"(helper, Python, Python, helper), the same arrays, on {card}")
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -1168,7 +1237,8 @@ def main() -> int:
             torch.cuda.synchronize()
             outs_c[c] = got
             e, e32, own = nrmse(got, want), nrmse(got, ref32), nrmse(want, ref32)
-            dev_us = device_passes(lambda: kern_c(c), n=10, rx=rx)
+            dev_us = device_passes(lambda: kern_c(c), n=10, rx=rx,
+                                   expect=1 if rx is deg_pass else 4)
             require(len(dev_us) == (1 if rx is deg_pass else 4),
                     f"{name} {c}: the profiler saw the passes {sorted(dev_us)}")
             row["err"][c], row["err_f32"][c], row["own_f32"][c] = e, e32, own
@@ -1200,6 +1270,133 @@ def main() -> int:
     log("precision", f"B2's bf16x2 and bf16x3 are its float32 bit for bit, B4's bf16x2 its bf16x3; "
         f"phase 31 in {time.perf_counter() - t31:.1f} s")
     del wb_dplanes, wb_dplanes4
+
+    # B3 where JAX degrids densely in fp32 whatever the class (a grid that
+    # does not tile, an odd nro; degrid_pallas.py:319-325): float32 at every
+    # class, bit for bit, wrapped and clipped
+    for (n_c4, nro_c4) in ((128, 128), (256, 255)):
+        g_c4 = cgrid(2, n_c4, n_c4)
+        ang_c4 = spoke_angles(12, "golden", 7, device=dev)
+        for wrap in (True, False):
+            ref_c4 = degrid_cuda.degrid_radial2d(g_c4, ang_c4, nro_c4, kw, beta, wrap=wrap)
+            same = all(torch.equal(degrid_cuda.degrid_radial2d(
+                g_c4, ang_c4, nro_c4, kw, beta, matmul_dtype=c, wrap=wrap), ref_c4)
+                for c in CLASSES)
+            e = nrmse(ref_c4, degrid_plain(g_c4, ang_c4, nro_c4, kw, beta, wrap=wrap))
+            log("precision", f"B3 at n {n_c4}, nro {nro_c4}, {'wrap' if wrap else 'clip'} (JAX's "
+                f"dense fp32 fallback): every class bit for bit its float32 {same}; float32 vs "
+                f"the plain version nrmse {e:.3e}")
+            require(same and e <= KERNEL_TOL, f"B3 at n {n_c4}, nro {nro_c4}: the class rule")
+
+    # -- 32 library: the kernels' function as one cuSPARSE SpMM ---------------
+    # (tools/library_call: the KB interpolation matrix as CSR, int32 indices,
+    # built on the card outside the timed window; kernel, library, library,
+    # kernel in turns, float32; the library's device time from the profiler)
+    from tron_tpu_torch.tools import library_call as libcall
+
+    t32 = time.perf_counter()
+    kbp, kbs = degrid_cuda.to_grid_planes(kg), (torch.cos(dang), torch.sin(dang))
+    kb_out = torch.empty((NC, work, NRO), dtype=torch.complex64, device=dev)
+
+    def degrid_bare(wrap):
+        """The degridding kernel alone (the bare C call) on grid planes, float32."""
+        def run():
+            code = built.lib.tron_degrid_radial2d_planes(
+                kbp.data_ptr(), kbs[0].data_ptr(), kbs[1].data_ptr(), drad.data_ptr(),
+                kb_out.data_ptr(), work, NRO, NRO, 2 * NC, int(2 * kw) + 1, int(wrap), kw, beta,
+                CLASSES.index("float32"), torch.cuda.current_stream().cuda_stream)
+            _build.check(built.lib, code, "degrid_radial2d kernel")
+            return kb_out
+        return run
+
+    exact_rad = lattice_radii(wb_planes.shape[1], 512, dev)
+    lib_cases = {  # row -> (matrix, input planes, relayout, plain, kernel at float32, its passes)
+        "grid_radial2d": (
+            lambda: libcall.interp_matrix(wb_ang, 512, 512, kw, beta, transpose=True), wb_planes,
+            lambda y: libcall.grid_output(y, 512),
+            lambda: grid_radial2d_planes_plain(wb_planes, wb_ang, 512, kw, beta),
+            lambda: grid_cuda.grid_radial2d_planes(wb_planes, wb_ang, 512, kw, beta), grid_pass),
+        "grid_radial2d (exact lattice)": (
+            lambda: libcall.interp_matrix(wb_ang, 512, exact_rad, kw, beta, transpose=True),
+            wb_planes, lambda y: libcall.grid_output(y, 512),
+            lambda: grid_radial2d_planes_culled(wb_planes, wb_ang, 512, kw, beta, rad=exact_rad),
+            lambda: grid_cuda._launch(wb_planes, wb_ang, 512, kw, beta, exact_rad, True, None),
+            grid_pass),
+        "grid_radial2d (nxos 128)": (
+            lambda: libcall.interp_matrix(b2_ang, 128, 128, kw, beta, transpose=True), b2_planes,
+            lambda y: libcall.grid_output(y, 128),
+            lambda: grid_radial2d_planes_plain(b2_planes, b2_ang, 128, kw, beta),
+            lambda: grid_cuda.grid_radial2d_planes(b2_planes, b2_ang, 128, kw, beta), grid_pass),
+        "degrid_radial2d": (
+            lambda: libcall.interp_matrix(dang, NRO, NRO, kw, beta, wrap=False), kbp,
+            lambda y: libcall.degrid_output(y, work, NRO),
+            lambda: degrid_plain(kg, dang, NRO, kw, beta, wrap=False), degrid_bare(False),
+            deg_pass),
+        "degrid_radial2d (wrap)": (
+            lambda: libcall.interp_matrix(dang, NRO, NRO, kw, beta, wrap=True), kbp,
+            lambda y: libcall.degrid_output(y, work, NRO),
+            lambda: degrid_plain(kg, dang, NRO, kw, beta, wrap=True), degrid_bare(True),
+            deg_pass),
+    }
+    lib = {}
+    for name, (make, x, relayout, plain_f, kern_f, rx) in lib_cases.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = make()
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        mm = libcall.grid_library if name.startswith("grid") else libcall.degrid_library
+        call = lambda: mm(x, A)  # noqa: E731
+        y, y2 = call(), call()
+        e = nrmse(relayout(y), plain_f())
+        ek = nrmse(relayout(y), kern_f())
+        repeat = torch.equal(y, y2)
+        tl = [timed(kern_f, 200), timed(call, 200), timed(call, 200), timed(kern_f, 200)]
+        lib_dev = device_passes(call, n=20, rx=re.compile(r".+"))
+        kern_dev = device_passes(kern_f, n=20, rx=rx, expect=1 if rx is deg_pass else 4)
+        K = x.shape[-1]
+        nnz = A.values().numel()
+        l_bound, l_by = bound(libcall.spmm_bytes(A, K), 2.0 * nnz * K)
+        try:  # bfloat16 values and operand, where the card's torch takes them
+            Ab = torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                         A.values().to(torch.bfloat16), A.shape,
+                                         check_invariants=False)
+            xb = x.to(torch.bfloat16)
+            yb = mm(xb, Ab)
+            bf16_err = nrmse(relayout(yb.float()), plain_f())
+            bf16 = {"ms": 1e3 * timed(lambda: mm(xb, Ab), 200), "err_vs_plain_f32": bf16_err}
+        except Exception as ex:  # noqa: BLE001 (recorded: which call the card refuses)
+            bf16 = f"none: {type(ex).__name__}: {str(ex).splitlines()[0] if str(ex) else ''}"
+        lib[name] = {
+            "ms": 1e3 * (tl[1] + tl[2]) / 2, "kernel_ms": 1e3 * (tl[0] + tl[3]) / 2,
+            "device_ms": sum(lib_dev.values()) / 1e3, "kernel_device_ms": sum(kern_dev.values()) / 1e3,
+            "bound_ms": l_bound, "bound_by": l_by, "nnz": nnz, "build_ms": build_ms,
+            "index": str(A.col_indices().dtype).replace("torch.", ""),
+            "matrix_mb": libcall.matrix_bytes(A) / 1e6,
+            "err": e, "repeat_bitwise": repeat, "bf16": bf16,
+        }
+        log("library", f"{name}: {nnz} nonzeros ({lib[name]['index']} indices, "
+            f"{lib[name]['matrix_mb']:.1f} MB, built in {build_ms:.1f} ms); vs the plain version "
+            f"nrmse {e:.3e} (tol {KERNEL_TOL}), vs the kernel {ek:.3e}; repeat bitwise {repeat}; "
+            f"kernel, library, library, kernel ms {[round(1e3 * t, 4) for t in tl]}; device us: "
+            f"library {1e3 * lib[name]['device_ms']:.2f} "
+            f"({ {k[:40]: round(v, 2) for k, v in lib_dev.items()} }), kernel "
+            f"{1e3 * lib[name]['kernel_device_ms']:.2f}; library bound {1e3 * l_bound:.3f} us "
+            f"({l_by}); bfloat16: {bf16} on {card}")
+        require(e <= KERNEL_TOL, f"library {name}: {e:.3e} from the plain version")
+        require(lib_dev, f"library {name}: the profiler saw no device kernel of the call")
+        require(len(kern_dev) == (1 if rx is deg_pass else 4),
+                f"library {name}: the profiler saw the kernel's passes {sorted(kern_dev)}")
+        del A, y, y2
+    for argv in (["--library"], ["--library", "--op", "degrid"]):
+        r = kbench.main([*argv, "--check"])
+        log("library", f"python -m tron_tpu_torch.tools.kbench {' '.join(argv)} --check: "
+            f"{r['ms_per_frame']:.4f} ms/frame ({r['kernel']}), nrmse vs plain "
+            f"{r['nrmse_vs_plain']:.3e}, set-up with the frames' matrices {r['library_build_s']:.2f} s "
+            f"on {card}")
+        require(r["nrmse_vs_plain"] <= KERNEL_TOL and sum(r["launches"].values()) == 0,
+                f"kbench {argv}: {r}")
+    log("library", f"phase 32 in {time.perf_counter() - t32:.1f} s")
 
     # -- 20 koosh: the -3 stack of stars at whole-body width -------------------
     from tron_tpu_torch.ops import coil
@@ -1912,7 +2109,22 @@ def main() -> int:
         f"{FP32_FLOPS / 1e12:g} TFLOP/s fp32")
 
     require("jax" not in sys.modules, "JAX was imported")
-    common = {"route": "cuda", "bound_ms": g_bound, "bound_by": g_by, "library_ms": None}
+    common = {"route": "cuda", "bound_ms": g_bound, "bound_by": g_by}
+
+    def library(name, suffix=""):
+        """Phase 32's library call for a kernel row: one torch.sparse.mm of
+        the KB interpolation matrix (cuSPARSE SpMM), float32, timed in turns
+        with the kernel; its device time, bound, nonzeros, index width,
+        build time, error against the plain version, repeat and bf16 try."""
+        r = lib[name]
+        return {f"library_ms{suffix}": r["ms"], f"library_device_ms{suffix}": r["device_ms"],
+                f"library_bound_ms{suffix}": r["bound_ms"],
+                f"library_bound_by{suffix}": r["bound_by"], f"library_nnz{suffix}": r["nnz"],
+                f"library_index{suffix}": r["index"], f"library_build_ms{suffix}": r["build_ms"],
+                f"library_err{suffix}": r["err"], f"library_repeat_bitwise{suffix}": r["repeat_bitwise"],
+                f"library_bf16{suffix}": r["bf16"],
+                f"library_turn_kernel_ms{suffix}": r["kernel_ms"],
+                f"library_turn_kernel_device_ms{suffix}": r["kernel_device_ms"]}
 
     def by_class(name, suffix=""):
         """Phase 31's device ms, error against the plain version and bound
@@ -1933,6 +2145,8 @@ def main() -> int:
             "kernel_ms": kern_dev_ms,
             "plain_ms": plain_ms,
             **common,
+            **library("grid_radial2d"),
+            **library("grid_radial2d (exact lattice)", "_exact"),
         },
         {
             # B2's contract (grids that do not tile in the Pallas kernel) runs
@@ -1944,8 +2158,10 @@ def main() -> int:
             "launches": b2_launches,
             "max_abs_err": err128,
             "ms": 1e3 * (t2[1] + t2[2]) / 2,
+            "kernel_ms": lib["grid_radial2d (nxos 128)"]["kernel_device_ms"],
             "plain_ms": 1e3 * (t2[0] + t2[3]) / 2,
             **common,
+            **library("grid_radial2d (nxos 128)"),
             "bound_ms": b2_bound,
             "bound_by": b2_by,
         },
@@ -1960,6 +2176,7 @@ def main() -> int:
             "kernel_ms": bat_dev_ms,
             "plain_ms": bat_plain_ms,
             **common,
+            **library("grid_radial2d"),
         },
         {
             "name": "grid_seg_radial2d",
@@ -1972,6 +2189,7 @@ def main() -> int:
             "kernel_ms": seg_dev_ms,
             "plain_ms": seg_plain_ms,
             **common,
+            **library("grid_radial2d"),
         },
         {
             "name": "degrid_radial2d",
@@ -1987,6 +2205,8 @@ def main() -> int:
             "kernel_ms": dbare_ms,
             "plain_ms": dplain_ms,
             **common,
+            **library("degrid_radial2d"),
+            **library("degrid_radial2d (wrap)", "_wrap"),
             "bound_ms": d_bound,
             "bound_by": d_by,
         },

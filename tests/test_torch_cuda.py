@@ -113,6 +113,30 @@ def test_kernel_matches_plain_at_each_class(dev, kernel, matmul_dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", MATMUL_DTYPES)
+@pytest.mark.parametrize("n,nro", [(128, 128), (256, 255)])
+def test_degrid_dense_fallback_shapes_compute_float32(dev, n, nro, matmul_dtype):
+    """B3 on a grid that does not tile, or at an odd nro, computes float32
+    at every class, as JAX's dense fallback does (`degridder_class`); the
+    forward of a 64^2 image at the card's default class is its float32 run."""
+    from tron_tpu_torch import nufft
+    from tron_tpu_torch.config import ReconConfig
+
+    rng = np.random.default_rng(n + nro)
+    g = _complex(rng, (2, n, n), dev)
+    ang = spoke_angles(12, "golden", 7, device=dev)
+    for wrap in (True, False):
+        got = degrid_cuda.degrid_radial2d(g, ang, nro, KW, BETA, matmul_dtype=matmul_dtype,
+                                          wrap=wrap)
+        assert torch.equal(got, degrid_cuda.degrid_radial2d(g, ang, nro, KW, BETA, wrap=wrap))
+        assert _nrmse(got, degrid_radial2d(g, ang, nro, KW, BETA, wrap=wrap)) <= TOL
+    img = _complex(rng, (2, 64, 64), dev)
+    cfg = ReconConfig(golden_angle=True, matmul_dtype=matmul_dtype)
+    f32 = ReconConfig(golden_angle=True, matmul_dtype="float32")
+    assert torch.equal(nufft.nufft_forward(img, ang, cfg), nufft.nufft_forward(img, ang, f32))
+
+
+@pytest.mark.gpu
 def test_complex_entry_matches_dense(dev):
     rng = np.random.default_rng(1)
     d = rng.standard_normal((2, 12, 128)) + 1j * rng.standard_normal((2, 12, 128))

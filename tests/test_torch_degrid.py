@@ -169,6 +169,61 @@ def test_wrapper_matches_pallas_degrid_kernel(matmul_dtype, tol):
     assert nrmse(clip.numpy()[..., m], got.numpy()[..., m]) == 0.0
 
 
+@pytest.mark.parametrize("n,nro", [(128, 128), (256, 255), (64, 64)])
+@pytest.mark.parametrize("matmul_dtype", ["bfloat16", "bf16x2"])
+def test_wrapper_takes_the_dense_fallback_class(n, nro, matmul_dtype):
+    """A grid that does not tile into two 128-pixel tiles, or an odd nro,
+    is degridded in fp32 whatever the class: JAX sends it to its dense
+    degridder (`degrid_pallas.py:319-325`), clip mode."""
+    C, npe = 2, 12
+    g = _grid(n + nro, C, n)
+    ang = _angles(npe, 7)
+    want = np.asarray(
+        jdegrid_pallas.degrid_radial2d_pallas(
+            jnp.asarray(g), jnp.asarray(ang), nro, KW, BETA, pe_chunk=4,
+            matmul_dtype=matmul_dtype, interpret=True,
+        )
+    )
+    got = degrid_cuda.degrid_radial2d(_t(g), _t(ang), nro, KW, BETA,
+                                      matmul_dtype=matmul_dtype, wrap=False)
+    assert got.shape == (C, npe, nro)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    f32 = degrid_cuda.degrid_radial2d(_t(g), _t(ang), nro, KW, BETA, wrap=False)
+    assert torch.equal(got, f32)
+    assert degrid_cuda.degridder_class(n, nro, matmul_dtype) == "float32"
+
+
+def test_degridder_class_follows_jax_dispatch():
+    for n, nro, want in [(256, 256, "bf16x3"), (512, 512, "bf16x3"), (384, 512, "bf16x3"),
+                         (256, 255, "float32"), (128, 128, "float32"), (320, 320, "float32"),
+                         (64, 64, "float32")]:
+        assert degrid_cuda.degridder_class(n, nro, "bf16x3") == want, (n, nro)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        degrid_cuda.degridder_class(256, 256, "fp8")
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+def test_nufft_forward_bfloat16_small_image_matches_jax(monkeypatch, wrap):
+    """The forward of a 64^2 image (nxos 128) at bfloat16, routed as on the
+    card (the wrappers get cfg.matmul_dtype), vs JAX's forward through its
+    Pallas backend: JAX degrids that grid densely in fp32 and patches the
+    wrap edges at XLA's default precision, fp32 on the CPU
+    (`tron_tpu/nufft.py:283-301`); the port computes float32."""
+    n, npe = 64, 10
+    jcfg, cfg = _cfgs(2.0, backend="pallas", matmul_dtype="bfloat16")
+    cfg = dataclasses.replace(cfg, backend="auto")
+    img = _grid(11, 2, n)
+    ang = _angles(npe, 40)
+    want = np.asarray(jnufft.nufft_forward(jnp.asarray(img), jnp.asarray(ang), jcfg, wrap=wrap))
+    monkeypatch.setattr(nufft, "kernel_class", lambda c, device: c.matmul_dtype)
+    got = nufft.nufft_forward(_t(img), _t(ang), cfg, wrap=wrap)
+    assert got.shape == (2, npe, 2 * n)
+    assert nrmse(got.numpy(), want) <= 1e-5
+    f32 = nufft.nufft_forward(_t(img), _t(ang), dataclasses.replace(cfg, matmul_dtype="float32"),
+                              wrap=wrap)
+    assert torch.equal(got, f32)
+
+
 def _cfgs(gridos, **kw):
     jcfg = JaxConfig(golden_angle=True, gridos=gridos, **kw)
     return jcfg, ReconConfig.from_jax_fields(dataclasses.asdict(jcfg))

@@ -1,7 +1,7 @@
 """RawArray (.ra) file format, numpy only (counterpart of `tron_tpu/io/ra.py`;
-copied, since importing any `tron_tpu` module imports JAX).  Region writes
-use ``os.pwrite``: the JAX package's C++ helper (`tron_tpu/_native/`) is
-not ported (ROADMAP A18).
+copied, since importing any `tron_tpu` module imports JAX).  ``RaWriter``'s
+region writes go through the port's C++ helper (`io/native.py`), or with
+``native=False`` through ``os.pwrite``.
 
 Byte-identical to the spec of the reference implementation
 (`src/ra.h:38-72`): a little-endian stream of u64 fields
@@ -207,10 +207,14 @@ class RaWriter:
 
     Writes go to a temp file; :meth:`close` atomically replaces ``path``
     (the contract of :func:`ra_write`), :meth:`abort` removes the temp.
+    Region writes go through the C++ helper's ``ra_nat_write_region``
+    (`io/native.py`), or with ``native=False`` through ``os.pwrite``.
     """
 
-    def __init__(self, path: str | os.PathLike, dims: tuple[int, ...], dtype):
+    def __init__(self, path: str | os.PathLike, dims: tuple[int, ...], dtype,
+                 native: bool = True):
         self.path = os.fspath(path)
+        self.native = native
         self.tmp = f"{self.path}.tmp.{os.getpid()}"
         self.dtype = np.dtype(dtype)
         if self.dtype.byteorder == ">":
@@ -236,7 +240,12 @@ class RaWriter:
             raise ValueError(
                 f"region [{off}, {off + buf.nbytes}) exceeds payload {self.size}"
             )
-        pwrite_all(self._fd, buf, self._data0 + off)
+        if self.native:
+            from tron_tpu_torch.io import native
+
+            native.ra_write_region(self.tmp, off, buf)
+        else:
+            pwrite_all(self._fd, buf, self._data0 + off)
 
     def close(self) -> None:
         os.close(self._fd)

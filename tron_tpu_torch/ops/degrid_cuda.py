@@ -9,7 +9,8 @@ on the CPU.  A kernel failure is never caught to fall back.
 
 The kernel takes any grid size and any readout count and does the periodic
 wrap itself, so the JAX package's dense fallback for untileable grids and
-its wrap-edge patch (`nufft._patch_degrid_wrap_edges`) have no counterpart.
+its wrap-edge patch (`nufft._patch_degrid_wrap_edges`) have no counterpart;
+the class that fallback computes does (`degridder_class`).
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
 card), so a run can show that its main path went through the kernel;
@@ -76,6 +77,20 @@ def _check(kgrid: torch.Tensor, angles: torch.Tensor, nro: int, kernwidth: float
         raise ValueError("npe*nro and n*n*2C must each fit a 32-bit int")
 
 
+def degridder_class(n: int, nro: int, matmul_dtype: str) -> str:
+    """The class the degridding kernel computes for JAX's degridder called
+    at ``matmul_dtype``, by JAX's dispatch: a grid that does not tile into
+    two or more 128-pixel tiles, or an odd ``nro``, goes to the dense XLA
+    degridder in fp32 whatever the class (`degrid_pallas.py:319-325`), and
+    `nufft_forward` sends an odd ``nro`` to its fp32 gather
+    (`tron_tpu/nufft.py:283`); any other shape runs `_degrid_kernel` at the
+    class."""
+    _check_dtype(matmul_dtype)
+    if nro % 2 or n % 128 or n // 128 < 2:
+        return "float32"
+    return matmul_dtype
+
+
 def degrid_radial2d(
     kgrid: torch.Tensor,
     angles: torch.Tensor,
@@ -91,15 +106,16 @@ def degrid_radial2d(
     (n, n) complex -> samples (C, npe, nro) (or (npe, nro)) complex64.
     ``matmul_dtype`` is the JAX precision class, computed by the kernel (and
     by the plain version on a CPU tensor) as `_degrid_kernel` computes it
-    (`ops/degrid.py`).  ``tuning.batched`` launches the same kernel: the
+    (`ops/degrid.py`), on the shapes `degridder_class` gives it; others
+    compute float32.  ``tuning.batched`` launches the same kernel: the
     Pallas kernel's batched mode is a static unroll over its neighbours
     (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls each
     neighbour row's noff columns statically already."""
-    _check_dtype(matmul_dtype)
     if kgrid.dim() == 2:
         return degrid_radial2d(
             kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap, tuning
         )[0]
+    matmul_dtype = degridder_class(kgrid.shape[-1], nro, matmul_dtype)
     if kgrid.device.type == "cpu":
         return degrid_radial2d_plain(
             kgrid, angles, nro, kernwidth, beta, wrap=wrap, matmul_dtype=matmul_dtype

@@ -8,10 +8,14 @@ the recon runs them:
 
     python -m tron_tpu_torch.tools.kbench [--frames 64] [--nc 6] [--nro 512]
         [--npe 204] [--op grid|degrid] [--no-windowed] [--batched]
-        [--reps 5] [--dtype bfloat16] [--check]
+        [--reps 5] [--dtype bfloat16] [--check] [--library]
 
 ``--no-windowed`` takes the segmented gridding kernel (B4), ``--batched`` the
 tensor-core one (B5: ``KernelTuning(batched=True)``, as ``TRON_BATCHED=1``).
+``--library`` times the library formulation in place of the kernels: each
+frame's KB interpolation matrix as CSR (built before the timing) through one
+``torch.sparse.mm`` (cuSPARSE SpMM), with the wrappers' relayouts around it,
+at float32 (`tools/library_call.py`).
 ``--dtype`` is the precision class the kernels compute (`ops/precision.py`).
 Times are CUDA-event times after a warm-up; the kernel that ran is read
 from the wrappers' launch counts.  ``--check`` prints frame 0's NRMSE
@@ -23,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import time
 
 import torch
 
@@ -55,6 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batched", action="store_true",
                    help="KernelTuning(batched=True): the tensor-core gridding kernel "
                    "(as TRON_BATCHED=1)")
+    p.add_argument("--library", action="store_true",
+                   help="one torch.sparse.mm of the KB interpolation matrix per frame in place "
+                   "of the kernels (float32; the matrices are built before the timing)")
     return p
 
 
@@ -94,10 +102,37 @@ def make_case(args, device):
                 tuning=tuning,
             )
 
+        dcls = degrid_cuda.degridder_class(nxos, nro, args.dtype)
+
         def plain(f):
-            return degrid_plain(x[f], angles[f], nro, KW, beta, wrap=False,
-                                matmul_dtype=args.dtype)
+            return degrid_plain(x[f], angles[f], nro, KW, beta, wrap=False, matmul_dtype=dcls)
+    if args.library:
+        fn = _library_case(args, x, angles, nxos, beta)
     return fn, plain, tuning
+
+
+def _library_case(args, x, angles, nxos, beta):
+    """The library call per frame, complex in and out as the kernel
+    wrappers take them (the same relayouts around one sparse product), with
+    the frames' matrices built up front."""
+    from tron_tpu_torch.tools import library_call as lib
+
+    nro = args.nro
+    if args.op == "grid":
+        mats = [lib.interp_matrix(angles[f], nxos, nxos, KW, beta, transpose=True)
+                for f in range(args.frames)]
+
+        def fn(f):
+            planes = grid_cuda.to_sample_planes(x[f], nxos)
+            return lib.grid_output(lib.grid_library(planes, mats[f]), nxos)
+    else:
+        mats = [lib.interp_matrix(angles[f], nxos, nro, KW, beta)
+                for f in range(args.frames)]
+
+        def fn(f):
+            gplanes = degrid_cuda.to_grid_planes(x[f])
+            return lib.degrid_output(lib.degrid_library(gplanes, mats[f]), args.npe, nro)
+    return fn
 
 
 def nrmse(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -106,8 +141,13 @@ def nrmse(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    if args.library:  # the library computes float32
+        args.dtype = "float32"
     device = resolve_device()
+    t0 = time.perf_counter()
     fn, plain, tuning = make_case(args, device)
+    torch.cuda.synchronize(device)
+    build_s = time.perf_counter() - t0
     nf = args.frames
 
     def run():
@@ -133,7 +173,9 @@ def main(argv=None) -> dict:
     res = {
         "op": args.op, "frames": nf, "windowed": args.windowed, "batched": tuning.batched,
         "dtype": args.dtype,
-        "kernel": ",".join(ran), "launches": counts, "ms_per_frame": ms_frame,
+        "kernel": "library (torch.sparse.mm)" if args.library else ",".join(ran),
+        "launches": counts, "ms_per_frame": ms_frame,
+        "library_build_s": build_s if args.library else None,  # inputs and matrices
         "msamples_per_s": msps, "device": torch.cuda.get_device_name(device),
     }
     print(
