@@ -24,18 +24,23 @@ Phases, one line each (any failure raises and exits non-zero):
              tile kernel's four passes in the profiler
   8 degrid   the CUDA degridding kernel vs its plain torch version (wrap and
              clip; nxos 64-640, 1-10 coils, gridos 1.5/2/2.5, an odd nro; kw 4
-             and 6.5, the wide instantiation)
+             and 6.5, the wide instantiation); at bf16x2 and bf16x3 under wrap
+             (nxos 256 and 512) the wrap-edge readouts bit for bit the float32
+             kernel's, the rest the class kernel's, in two launches
   9 exact    the gridding kernel's exact lattice vs the plain raw-rows gridder
  10 dot      dot test of the kernel pair at gridos 1.5, 2, 2.5, and at kw 4, 6.5
  11 forward  forward recon_radial2d at full width (32 frames of 6-coil 256^2,
-             -G -u 1: 512 spokes of 512 readouts), with launch counts
+             -G -u 1: 512 spokes of 512 readouts), with launch counts, at
+             float32 and at bf16x3 (--precision accurate: two launches a
+             frame, the wrap-edge readouts the float32 run's bit for bit)
  12 cgnr     -a -G -u 0.4 -d 21 -i 10 on the whole-body series, with launch
              counts, vs plain-operator CGNR; --toeplitz on 8 frames
  13 solver   6-coil birdcage Shepp-Logan 256^2: CGNR beats the adjoint and
              its data residual falls
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
  15 timing2  degrid kernel vs plain ms (the wrapper, and the bare C call),
-             forward Msamples/s, CGNR ms per frame
+             forward Msamples/s, CGNR ms per frame; at bf16x3 the forward and
+             B3 per call (bf16x2 too) with and without the wrap-edge launch
  16 seg      the segmented gridding kernel (windowed=False, B4) within 1e-6
              of the tile kernel (B1), B4, B1 and the tensor-core kernel
              (tuning.batched, B5) each within 1e-5 of its plain version, each
@@ -553,7 +558,7 @@ def main() -> int:
     # -- 8 degrid kernel vs plain ---------------------------------------------
     from tron_tpu_torch.ops import degrid_cuda
     from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_plain
-    from tron_tpu_torch.ops.degrid import lattice_radii
+    from tron_tpu_torch.ops.degrid import lattice_radii, wrap_edge_readouts
 
     def cgrid(*shape):
         a = rng.standard_normal(shape, dtype=np.float32) + 1j * rng.standard_normal(
@@ -628,6 +633,42 @@ def main() -> int:
                 require(same, f"repeat degrid run is not bitwise equal: kw {kww} {name}")
                 derr_wide[kww] = mae
             del g, got, again, want
+
+    # the wrap-edge rule (ops/degrid.fp32_wrap_edges): under wrap at bf16x2
+    # and bf16x3 the readouts JAX's patch recomputes at float32 are the
+    # float32 kernel's, bit for bit, from a second launch; every other readout
+    # is the class kernel's (the first launch alone, as the wrapper makes it)
+    def class_launch(g, ang, nro, c):
+        return degrid_cuda._launch(degrid_cuda.to_grid_planes(g), torch.cos(ang), torch.sin(ang),
+                                   lattice_radii(nro, g.shape[-1], dev), kw, beta, True, c)
+
+    for name, n, C, npe in (("nxos512 C6 npe204", 512, 6, 204), ("nxos256 C6", 256, 6, 48)):
+        g = cgrid(C, n, n)
+        ang = spoke_angles(npe, "golden", 19000, device=dev)
+        idx = wrap_edge_readouts(n, n, kw).to(dev)
+        keep = torch.ones(n, dtype=torch.bool, device=dev)
+        keep[idx] = False
+        f32 = degrid_cuda.degrid_radial2d(g, ang, n, kw, beta)
+        for c in ("bf16x2", "bf16x3"):
+            before = degrid_cuda.LAUNCHES
+            got = degrid_cuda.degrid_radial2d(g, ang, n, kw, beta, matmul_dtype=c)
+            two = degrid_cuda.LAUNCHES - before
+            again = degrid_cuda.degrid_radial2d(g, ang, n, kw, beta, matmul_dtype=c)
+            cls = class_launch(g, ang, n, c)
+            want = degrid_plain(g, ang, n, kw, beta, wrap=True, matmul_dtype=c)
+            torch.cuda.synchronize()
+            edges = torch.equal(got[..., idx], f32[..., idx])
+            inner = torch.equal(got[..., keep], cls[..., keep])
+            e, e_cls = nrmse(got, want), nrmse(got[..., idx], cls[..., idx])
+            log("degrid", f"{name} wrap {c}: {len(idx)} wrap-edge readouts a spoke bitwise the "
+                f"float32 kernel's: {edges}, the rest bitwise the class kernel's: {inner}, "
+                f"launches {two}; vs the plain version at {c} nrmse {e:.3e} (tol {KERNEL_TOL}); "
+                f"the edges vs the class kernel's {e_cls:.3e}; repeat bitwise {torch.equal(got, again)}")
+            require(edges and inner, f"degrid wrap edges {name} {c}: edges {edges}, rest {inner}")
+            require(two == 2, f"degrid wrap {name} {c}: {two} launches, expected 2")
+            require(e <= KERNEL_TOL, f"degrid wrap {name} {c} vs plain: nrmse {e:.3e}")
+            require(torch.equal(got, again), f"repeat degrid run is not bitwise equal: {name} {c}")
+        del g, got, again, cls, want, f32
 
     # -- 9 exact lattice -----------------------------------------------------
     for gos in (1.5, 2.0, 2.5):
@@ -713,6 +754,33 @@ def main() -> int:
     log("forward", f"frame 0 kernel forward vs plain forward on the card: nrmse {e:.3e} "
         f"(tol {KERNEL_TOL})")
     require(e <= KERNEL_TOL, f"forward frame 0 vs plain {e:.3e}")
+
+    # the same forward at bf16x3 (`tron-torch --precision accurate`): two
+    # degrid launches a frame, the class's and the wrap edges' at float32
+    from tron_tpu_torch.ops.fftops import centered_fft2, deapodize, pad_center
+
+    fcfg3 = dataclasses.replace(fcfg, matmul_dtype="bf16x3")
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
+    t0 = time.perf_counter()
+    fout3 = recon_radial2d(fimgs, fcfg3, device=dev)
+    wall = time.perf_counter() - t0
+    fwd3_launches = degrid_cuda.LAUNCHES
+    fidx = wrap_edge_readouts(NRO, NRO, kw).numpy()
+    fedges = np.array_equal(fout3[..., fidx], fout[..., fidx])
+    kg0 = centered_fft2(deapodize(pad_center(fd[0], NRO), NRO, kw, beta))
+    plain3 = degrid_plain(kg0, fang, NRO, kw, beta, wrap=True, matmul_dtype="bf16x3")
+    e = nrmse(fout3[0].reshape(NC, NRO, NRO), plain3.cpu())
+    e32 = nrmse(fout3, fout)
+    log("forward", f"recon_radial2d -G -u 1 at bf16x3: out {fout3.shape}, degrid launches "
+        f"{fwd3_launches}, grid launches {grid_cuda.LAUNCHES}, host wall {wall:.3f} s; the "
+        f"{len(fidx)} wrap-edge readouts a spoke bitwise the float32 forward's: {fedges}; frame 0 "
+        f"vs the plain version at bf16x3 nrmse {e:.3e} (tol {KERNEL_TOL}); vs float32 {e32:.3e}")
+    require(fwd3_launches == 2 * NF and grid_cuda.LAUNCHES == 0,
+            f"forward at bf16x3: {fwd3_launches} degrid launches, expected {2 * NF}")
+    require(fedges and bool(np.isfinite(fout3).all()), "forward at bf16x3: wrap edges not float32's")
+    require(e <= KERNEL_TOL, f"forward frame 0 at bf16x3 vs plain {e:.3e}")
+    del fout3, plain3, kg0
 
     # -- 12 CGNR main path ---------------------------------------------------
     ccfg = dataclasses.replace(cfg, niter=NITER, matmul_dtype="float32")
@@ -841,6 +909,58 @@ def main() -> int:
     s = timed(forward_all, 3)
     log("timing2", f"forward: {NF} frames in {s:.4f} s = {NF * NC * NRO * NRO / s / 1e6:.1f} "
         f"Msamples/s (nz*nc*npe1*nro / s) on {card}")
+
+    # at bf16x3, with and without the wrap-edge launch (without it: the class
+    # launch alone, the route before the rule), in 10 pairs whose order
+    # alternates; B3 per call the same way at bf16x2 and bf16x3 on a CGNR
+    # frame's geometry under wrap, and the edge launch alone
+    def no_edges(fn):
+        def run():
+            rule = degrid_cuda.fp32_wrap_edges
+            degrid_cuda.fp32_wrap_edges = lambda *a: False
+            try:
+                fn()
+            finally:
+                degrid_cuda.fp32_wrap_edges = rule
+        return run
+
+    def pairs(fn, reps, n=10):
+        """Medians and interquartile ranges (s per call) of n pairs, without
+        and with the edge launch, and how many pairs the edge launch lost."""
+        t = {"without": [], "with": []}
+        for i in range(n):
+            order = (("without", no_edges(fn)), ("with", fn))
+            for k, f in order if i % 2 == 0 else order[::-1]:
+                t[k].append(timed(f, reps))
+        q = {k: np.percentile(v, [25, 50, 75]) for k, v in t.items()}
+        lost = sum(b > a for a, b in zip(t["without"], t["with"]))
+        return {k: float(v[1]) for k, v in q.items()}, {k: float(v[2] - v[0]) for k, v in q.items()}, lost
+
+    def forward3_all():
+        for z in range(NF):
+            nufft_forward(fd[z], fang, fcfg3, nro=NRO)
+
+    med, iqr, lost = pairs(forward3_all, 3)
+    samples3 = NF * NC * NRO * NRO
+    fwd3_rate = {k: samples3 / v / 1e6 for k, v in med.items()}
+    log("timing2", f"forward at bf16x3, {NF} frames, 10 pairs: median {fwd3_rate['without']:.1f} "
+        f"Msamples/s without the wrap-edge launch ({1e3 * med['without']:.4f} ms, IQR "
+        f"{1e3 * iqr['without']:.4f}), {fwd3_rate['with']:.1f} with it ({1e3 * med['with']:.4f} ms, "
+        f"IQR {1e3 * iqr['with']:.4f}); the edge launch slower in {lost} of 10 pairs on {card}")
+    b3_edge_ms = {}
+    for c in ("bf16x2", "bf16x3"):
+        med, iqr, lost = pairs(lambda c=c: degrid_cuda.degrid_radial2d(kg, dang, NRO, kw, beta,
+                                                                        matmul_dtype=c), 50)
+        b3_edge_ms[c] = {k: 1e3 * v for k, v in med.items()}
+        log("timing2", f"B3 wrapper at {c}, wrap ({NC}x{NRO}x{NRO} -> {NC}x{work}x{NRO}), 10 pairs: "
+            f"median {1e3 * med['without']:.4f} ms without the wrap-edge launch (IQR "
+            f"{1e3 * iqr['without']:.4f}), {1e3 * med['with']:.4f} ms with it (IQR "
+            f"{1e3 * iqr['with']:.4f}); slower in {lost} of 10 pairs on {card}")
+    eidx, erad = degrid_cuda._edge_tables(NRO, NRO, kw, dev)
+    b3_edge_ms["edge_launch"] = 1e3 * timed(lambda: degrid_cuda._launch(
+        kgp, dct, dst, erad, kw, beta, True, "float32"), 200)
+    log("timing2", f"the wrap-edge launch alone ({len(eidx)} readouts a spoke, float32, on ready "
+        f"grid planes): {b3_edge_ms['edge_launch']:.4f} ms on {card}")
     nzt = min(32, NZ)
     dcg = dfull[:, : work + (nzt - 1) * SLIDE]
     s = timed(lambda: recon_frames(dcg, ccfg, work, SLIDE, nzt), 1)
@@ -2197,13 +2317,15 @@ def main() -> int:
             **by_class("degrid_radial2d"),
             **by_class("degrid_radial2d (kw 4)", "_kw4"),
             "replaces": "tron_tpu/ops/degrid_pallas.py:44",
-            "launches": fwd_launches + cg_degrid + new_counts["degrid_radial2d"],
+            "launches": fwd_launches + fwd3_launches + cg_degrid + new_counts["degrid_radial2d"],
             "max_abs_err": derr512,
             "max_abs_err_kw4": derr_wide[4.0],
             "max_abs_err_kw6.5": derr_wide[6.5],
             "ms": dkern_ms,
             "kernel_ms": dbare_ms,
             "plain_ms": dplain_ms,
+            "wrap_edge_ms": b3_edge_ms,
+            "forward_bf16x3_msamples_s": fwd3_rate,
             **common,
             **library("degrid_radial2d"),
             **library("degrid_radial2d (wrap)", "_wrap"),

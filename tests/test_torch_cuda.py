@@ -15,7 +15,7 @@ import torch
 from tron_tpu_torch.config import KernelTuning
 from tron_tpu_torch.kernels.kb import kb_beta
 from tron_tpu_torch.ops import degrid_cuda, grid_cuda
-from tron_tpu_torch.ops.degrid import degrid_radial2d
+from tron_tpu_torch.ops.degrid import degrid_radial2d, lattice_radii, wrap_edge_readouts
 from tron_tpu_torch.ops.grid import (
     grid_radial2d,
     grid_radial2d_planes_culled,
@@ -182,6 +182,36 @@ def test_degrid_kernel_matches_plain(dev, wrap, n, C, npe, nro):
     assert got.shape == (C, npe, nro) and got.dtype == torch.complex64
     assert _nrmse(got, want) <= TOL
     assert torch.equal(got, again)  # one owner per sample, no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("matmul_dtype", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("n,C,npe", [(512, 6, 204), (256, 6, 48)])
+def test_degrid_wrap_edges_are_the_float32_kernels(dev, n, C, npe, matmul_dtype):
+    """Under wrap at bf16x2 and bf16x3 the wrapper makes two launches: the
+    wrap-edge readouts (`wrap_edge_readouts`, JAX's patched set) are the
+    float32 kernel's bit for bit, every other readout the class kernel's
+    (its launch alone); the result holds against the plain version, which
+    applies the same rule."""
+    rng = np.random.default_rng(n + npe)
+    g = _complex(rng, (C, n, n), dev)
+    ang = spoke_angles(npe, "golden", 19000, device=dev)
+    launches = degrid_cuda.LAUNCHES
+    got = degrid_cuda.degrid_radial2d(g, ang, n, KW, BETA, matmul_dtype=matmul_dtype)
+    assert degrid_cuda.LAUNCHES == launches + 2
+    f32 = degrid_cuda.degrid_radial2d(g, ang, n, KW, BETA)
+    cls = degrid_cuda._launch(degrid_cuda.to_grid_planes(g), torch.cos(ang), torch.sin(ang),
+                              lattice_radii(n, n, dev), KW, BETA, True, matmul_dtype)
+    want = degrid_radial2d(g, ang, n, KW, BETA, wrap=True, matmul_dtype=matmul_dtype)
+    torch.cuda.synchronize()
+    idx = wrap_edge_readouts(n, n, KW).to(dev)
+    keep = torch.ones(n, dtype=torch.bool, device=dev)
+    keep[idx] = False
+    assert got.shape == (C, npe, n) and len(idx) == 8
+    assert torch.equal(got[..., idx], f32[..., idx])
+    assert torch.equal(got[..., keep], cls[..., keep])
+    assert not torch.equal(got[..., idx], cls[..., idx])
+    assert _nrmse(got, want) <= TOL
 
 
 @pytest.mark.gpu

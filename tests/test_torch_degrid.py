@@ -9,6 +9,7 @@ mode: its tests are in tests/test_torch_cuda.py.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -166,7 +167,121 @@ def test_wrapper_matches_pallas_degrid_kernel(matmul_dtype, tol):
     clip = degrid_cuda.degrid_radial2d(
         _t(g), _t(ang), n, KW, BETA, matmul_dtype=matmul_dtype, wrap=False
     )
-    assert nrmse(clip.numpy()[..., m], got.numpy()[..., m]) == 0.0
+    # under wrap bf16x2 and bf16x3 take JAX's wrap-edge readouts at float32,
+    # readout n - 4 of the interior among them (`tron_tpu/nufft.py:221-224`);
+    # every other interior readout is the class's under wrap and clip alike
+    edge = np.zeros(n, dtype=bool)
+    edge[degrid.wrap_edge_readouts(n, n, KW).numpy()] = degrid.fp32_wrap_edges(matmul_dtype, True)
+    assert nrmse(clip.numpy()[..., m & ~edge], got.numpy()[..., m & ~edge]) == 0.0
+    f32 = degrid_cuda.degrid_radial2d(_t(g), _t(ang), n, KW, BETA)
+    assert torch.equal(got[..., m & edge], f32[..., m & edge])
+
+
+def _pallas_wrap(g, ang, nro, matmul_dtype, kw=KW, beta=BETA):
+    """JAX's forward degridding under wrap at a class: `_degrid_kernel` in
+    interpret mode, then its wrap-edge patch at precision="highest"
+    (`tron_tpu/nufft.py:283-302`; the classes bf16x2 to float32)."""
+    kg, ja = jnp.asarray(g), jnp.asarray(ang)
+    clip = jdegrid_pallas.degrid_radial2d_pallas(
+        kg, ja, nro, kw, beta, pe_chunk=4, matmul_dtype=matmul_dtype, interpret=True
+    )
+    return np.asarray(
+        jnufft._patch_degrid_wrap_edges(clip, kg, ja, nro, kw, beta, precision="highest")
+    )
+
+
+@pytest.mark.parametrize("matmul_dtype,tol", [("bf16x2", 3e-4), ("bf16x3", 2e-4)])
+def test_wrapper_matches_pallas_degrid_with_wrap_edge_patch(matmul_dtype, tol):
+    """The wrapper's CPU route under wrap vs JAX's Pallas degrid plus its
+    wrap-edge patch, at the geometry of the masked test above: the edge
+    readouts within JAX's own fp32 patch error of float32, the whole output,
+    unmasked, within the bound that test holds the interior to."""
+    C, npe, n = 2, 12, 256
+    g = _grid(21, C, n)
+    ang = _angles(npe, 7)
+    want = _pallas_wrap(g, ang, n, matmul_dtype)
+    got = degrid_cuda.degrid_radial2d(_t(g), _t(ang), n, KW, BETA, matmul_dtype=matmul_dtype)
+    idx = degrid.wrap_edge_readouts(n, n, KW).numpy()
+    assert got.shape == (C, npe, n) and len(idx) == 8
+    assert nrmse(got.numpy()[..., idx], want[..., idx]) <= 1e-5
+    assert nrmse(got.numpy(), want) < tol
+
+
+@pytest.mark.parametrize("ratio", [1, 2])
+@pytest.mark.parametrize("kw", [2.0, 3.0, 4.0])
+def test_wrap_edge_readouts_are_jax_index_set(kw, ratio):
+    """`wrap_edge_readouts` is the set JAX's patch overwrites: the readouts
+    that `_patch_degrid_wrap_edges` makes finite in an all-NaN output."""
+    n = 64
+    nro = ratio * n
+    npe = 3
+    nan = jnp.full((1, npe, nro), jnp.nan, dtype=jnp.complex64)
+    patched = np.asarray(jnufft._patch_degrid_wrap_edges(
+        nan, jnp.ones((1, n, n), jnp.complex64), jnp.asarray(_angles(npe, 0)), nro, kw,
+        kb_beta(kw, 2.0), precision="highest",
+    ))
+    want = np.flatnonzero(np.isfinite(patched).all(axis=(0, 1)))
+    got = degrid.wrap_edge_readouts(nro, n, kw)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isnan(np.delete(patched, want, axis=-1)).all()
+
+
+@pytest.mark.parametrize(
+    "matmul_dtype,wrap",
+    [("bfloat16", True), ("float32", True), ("bfloat16", False), ("bf16x2", False),
+     ("bf16x3", False), ("float32", False), ("bf16x2", True), ("bf16x3", True)],
+)
+def test_wrap_edge_rule_touches_only_the_edges_at_bf16x2_and_bf16x3(matmul_dtype, wrap):
+    """The class computed with no patch (``readouts`` = every readout) is
+    the output bit for bit at bfloat16, float32 and in clip mode; at bf16x2
+    and bf16x3 under wrap every readout outside `wrap_edge_readouts` is, and
+    those are the float32 output's bit for bit."""
+    C, npe, n = 2, 12, 256
+    g = _t(_grid(5, C, n))
+    ang = _t(_angles(npe, 3))
+    got = degrid_cuda.degrid_radial2d(g, ang, n, KW, BETA, matmul_dtype=matmul_dtype, wrap=wrap)
+    bare = degrid.degrid_radial2d(g, ang, n, KW, BETA, wrap=wrap, matmul_dtype=matmul_dtype,
+                                  readouts=torch.arange(n))
+    idx = degrid.wrap_edge_readouts(n, n, KW)
+    patched = degrid.fp32_wrap_edges(matmul_dtype, wrap)
+    assert patched == (wrap and matmul_dtype in ("bf16x2", "bf16x3"))
+    if not patched:
+        assert torch.equal(got, bare)
+        return
+    keep = torch.ones(n, dtype=torch.bool)
+    keep[idx] = False
+    assert torch.equal(got[..., keep], bare[..., keep])
+    assert not torch.equal(got[..., idx], bare[..., idx])
+    f32 = degrid.degrid_radial2d(g, ang, n, KW, BETA, wrap=True)
+    assert torch.equal(got[..., idx], f32[..., idx])
+
+
+@pytest.mark.parametrize(
+    "matmul_dtype,wrap,tol", [("bf16x2", True, 3e-4), ("bf16x3", True, 2e-4),
+                              ("bf16x3", False, 2e-4)],
+)
+def test_nufft_forward_at_class_matches_jax_pallas_forward(monkeypatch, matmul_dtype, wrap, tol):
+    """The forward of a 128^2 image (nxos 256) at a bf16 class, routed as
+    on the card (the wrappers get cfg.matmul_dtype), vs JAX's forward
+    through its Pallas backend, its kernel in interpret mode: pad, deapod,
+    FFT, `_degrid_kernel` and under wrap the fp32 edge patch
+    (`tron_tpu/nufft.py:283-302`).  The whole output, unmasked."""
+    n, npe = 128, 12
+    jcfg, cfg = _cfgs(2.0, backend="pallas", matmul_dtype=matmul_dtype)
+    cfg = dataclasses.replace(cfg, backend="auto")
+    img = _grid(13, 2, n)
+    ang = _angles(npe, 40)
+    monkeypatch.setattr(jdegrid_pallas, "degrid_radial2d_pallas", functools.partial(
+        jdegrid_pallas.degrid_radial2d_pallas, pe_chunk=4, interpret=True))
+    want = np.asarray(jnufft.nufft_forward(jnp.asarray(img), jnp.asarray(ang), jcfg, wrap=wrap))
+    monkeypatch.setattr(nufft, "kernel_class", lambda c, device: c.matmul_dtype)
+    got = nufft.nufft_forward(_t(img), _t(ang), cfg, wrap=wrap).numpy()
+    assert got.shape == want.shape == (2, npe, 2 * n)
+    assert nrmse(got, want) < tol
+    if wrap:
+        idx = degrid.wrap_edge_readouts(2 * n, 2 * n, KW).numpy()
+        assert nrmse(got[..., idx], want[..., idx]) <= 1e-5
 
 
 @pytest.mark.parametrize("n,nro", [(128, 128), (256, 255), (64, 64)])

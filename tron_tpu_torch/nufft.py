@@ -7,9 +7,10 @@
 
 Radial data is (..., npe, nro); images are (..., n, n) with n = nro // 2
 (adjoint) and k-space grids (nxos, nxos), nxos = n * gridos.  The
-degridding kernel wraps or clips by an argument and takes any grid, so the
-JAX package's wrap-edge patch `_patch_degrid_wrap_edges` has no
-counterpart.
+degridding kernel wraps or clips by an argument and takes any grid; the
+JAX package's wrap-edge patch `_patch_degrid_wrap_edges` has its
+counterpart in the degridding wrapper, which computes those readouts at
+float32 at the bf16x2 and bf16x3 classes (`ops/degrid.fp32_wrap_edges`).
 """
 
 from __future__ import annotations
@@ -147,7 +148,8 @@ def nufft_forward(
     reproduces the reference's periodic domain (`src/tron.cu:569-570`);
     ``wrap=False`` clips KB footprints at the grid edge (the exact
     transpose of the gridding adjoint).  The degridding kernel does either
-    itself."""
+    itself; under wrap at bf16x2 and bf16x3 the wrap-edge readouts come out
+    float32, as JAX's patch makes them."""
     n = img.shape[-1]
     nxos = int(n * cfg.gridos)
     if nro is None:

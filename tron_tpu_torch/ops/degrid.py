@@ -12,11 +12,16 @@ Conventions as in the JAX package: x = r cos t, y = r sin t, the grid
 centred at n//2, sample u of a spoke at radius (u/nro - 1/2) * n
 (`lattice_radii`, the one radius table of both kernels and both plain
 versions).
+
+With ``wrap`` at the bf16x2 and bf16x3 classes the readouts whose footprint
+can cross the grid edge (`wrap_edge_readouts`) are computed at float32, as
+JAX's wrap-edge patch computes them (`fp32_wrap_edges`).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -50,9 +55,36 @@ def _mod(x: torch.Tensor, m: float) -> torch.Tensor:
     return torch.where(y < 0, y + m, y)
 
 
-def _positions(angles: torch.Tensor, nro: int, n: int):
-    """Continuous sample columns and rows (xs, ys), each (npe, nro)."""
+# The classes whose wrap-edge readouts JAX recomputes at float32: its patch
+# runs at precision="highest" for them (`tron_tpu/nufft.py:294-302`).  At
+# bfloat16 it runs at the TPU's default precision, which stays the class.
+FP32_EDGE_CLASSES = ("bf16x2", "bf16x3")
+
+
+def wrap_edge_readouts(nro: int, n: int, kernwidth: float) -> torch.Tensor:
+    """The readouts of a spoke whose KB footprint can cross the edge of an
+    n-point grid, sorted int64: the first and last ``ceil(kw nro / n) + 2``,
+    JAX's index set exactly (`tron_tpu/nufft.py:221-224`)."""
+    ekw = math.ceil(kernwidth * nro / n) + 1
+    idx = set(range(0, min(ekw + 1, nro))) | set(range(max(nro - ekw - 1, 0), nro))
+    return torch.tensor(sorted(idx), dtype=torch.int64)
+
+
+def fp32_wrap_edges(matmul_dtype: str, wrap: bool) -> bool:
+    """True when a degridding call at class ``matmul_dtype`` computes the
+    wrap-edge readouts (`wrap_edge_readouts`) at float32 over the class's
+    values: with ``wrap`` at a class of ``FP32_EDGE_CLASSES``, as JAX's
+    patch (`tron_tpu/nufft.py:204-244`) overwrites them.  The one rule of
+    the kernel wrapper (`degrid_cuda.py`) and of ``degrid_radial2d``."""
+    return wrap and matmul_dtype in FP32_EDGE_CLASSES
+
+
+def _positions(angles: torch.Tensor, nro: int, n: int, readouts=None):
+    """Continuous sample columns and rows (xs, ys), each (npe, nro), or
+    (npe, len(readouts)) at those readouts only."""
     kr = lattice_radii(nro, n, angles.device)
+    if readouts is not None:
+        kr = kr[readouts.to(kr.device)]
     ct = torch.cos(angles).to(torch.float32)
     st = torch.sin(angles).to(torch.float32)
     xs = kr[None, :] * ct[:, None] + n // 2
@@ -68,6 +100,7 @@ def degrid_radial2d(
     beta: float,
     wrap: bool = True,
     matmul_dtype: str = "float32",
+    readouts: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """kgrid: (..., n, n) centered complex k-space; angles: (npe,).  Returns
     samples (..., npe, nro).
@@ -81,18 +114,29 @@ def degrid_radial2d(
     weighs each neighbour by wx * wy; a bf16 class sums each neighbour row
     first, v = sum_x A G with A = wx and G rounded to bfloat16 and split
     (bfloat16 Ah Gh; bf16x2 Ah Gh + Ah Gl; bf16x3 Ah Gh + Ah Gl + Al Gh,
-    `tron_tpu/ops/degrid_pallas.py:120-134`), then adds wy * v in fp32."""
+    `tron_tpu/ops/degrid_pallas.py:120-134`), then adds wy * v in fp32;
+    with ``wrap`` at bf16x2 and bf16x3 the wrap-edge readouts are then
+    computed at float32 over them (`fp32_wrap_edges`).
+
+    ``readouts`` (int64 indices) computes only those readouts, (..., npe,
+    len(readouts)), at ``matmul_dtype`` as given: the float32 pass of that
+    rule."""
+    if readouts is None and fp32_wrap_edges(matmul_dtype, wrap):
+        edges = wrap_edge_readouts(nro, kgrid.shape[-1], kernwidth)
+        out = _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype)
+        fp32 = degrid_radial2d(kgrid, angles, nro, kernwidth, beta, wrap, readouts=edges)
+        return out.index_copy_(-1, edges.to(out.device), fp32)
     if matmul_dtype != "float32":
-        return _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype)
+        return _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype, readouts)
     n = kgrid.shape[-1]
     batch = tuple(kgrid.shape[:-2])
     flat = kgrid.reshape(batch + (n * n,))
-    xs, ys = _positions(angles, nro, n)
+    xs, ys = _positions(angles, nro, n, readouts)
     x0 = torch.ceil(xs - kernwidth).to(torch.int64)
     y0 = torch.ceil(ys - kernwidth).to(torch.int64)
 
     noff = int(2 * kernwidth) + 1
-    out = kgrid.new_zeros(batch + (angles.shape[0], nro))
+    out = kgrid.new_zeros(batch + xs.shape)
     for dx in range(noff):
         xu = x0 + dx
         wx = kb_kernel(xu.to(torch.float32) - xs, kernwidth, beta)
@@ -110,15 +154,16 @@ def degrid_radial2d(
     return out
 
 
-def _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype) -> torch.Tensor:
-    """``degrid_radial2d`` at a bf16 class: rows dy outer, each row's sum
-    over x at the class, then times wy."""
+def _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype,
+                  readouts=None) -> torch.Tensor:
+    """``degrid_radial2d`` at a bf16 class, every readout at the class: rows
+    dy outer, each row's sum over x at the class, then times wy."""
     n = kgrid.shape[-1]
     batch = tuple(kgrid.shape[:-2])
     flat = kgrid.reshape(batch + (n * n,))
     gh = bf16(flat)
     gl = bf16(flat - gh)
-    xs, ys = _positions(angles, nro, n)
+    xs, ys = _positions(angles, nro, n, readouts)
     x0 = torch.ceil(xs - kernwidth).to(torch.int64)
     y0 = torch.ceil(ys - kernwidth).to(torch.int64)
     noff = int(2 * kernwidth) + 1
@@ -127,7 +172,7 @@ def _degrid_class(kgrid, angles, nro, kernwidth, beta, wrap, matmul_dtype) -> to
         w = kb_kernel(u.to(torch.float32) - pos, kernwidth, beta)
         return w if wrap else w * ((u >= 0) & (u < n))
 
-    out = kgrid.new_zeros(batch + (angles.shape[0], nro))
+    out = kgrid.new_zeros(batch + xs.shape)
     for dy in range(noff):
         yu = y0 + dy
         wy = weight(yu, ys)

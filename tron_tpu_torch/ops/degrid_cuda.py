@@ -8,22 +8,29 @@ takes the kernel's plain version (`ops/degrid.py`), and only because it lies
 on the CPU.  A kernel failure is never caught to fall back.
 
 The kernel takes any grid size and any readout count and does the periodic
-wrap itself, so the JAX package's dense fallback for untileable grids and
-its wrap-edge patch (`nufft._patch_degrid_wrap_edges`) have no counterpart;
-the class that fallback computes does (`degridder_class`).
+wrap itself, so the JAX package's dense fallback for untileable grids has
+no counterpart; the class that fallback computes does (`degridder_class`).
+So does its wrap-edge patch (`nufft._patch_degrid_wrap_edges`), which
+recomputes the readouts whose footprint can cross the grid edge at float32
+at the bf16x2 and bf16x3 classes: a second launch of the float32 kernel on
+the same grid planes with only those readouts' radii, copied over the
+class's values (`ops/degrid.fp32_wrap_edges`, the rule of the plain
+version too).
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
-card), so a run can show that its main path went through the kernel;
-``reset_launches()`` zeroes it.
+card, two where the wrap edges are recomputed), so a run can show that its
+main path went through the kernel; ``reset_launches()`` zeroes it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from tron_tpu_torch import _build
 from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_radial2d_plain
-from tron_tpu_torch.ops.degrid import lattice_radii
+from tron_tpu_torch.ops.degrid import fp32_wrap_edges, lattice_radii, wrap_edge_readouts
 from tron_tpu_torch.ops.grid_cuda import profiler_range
 from tron_tpu_torch.ops.precision import MATMUL_DTYPES
 from tron_tpu_torch.ops.precision import check as _check_dtype
@@ -107,7 +114,9 @@ def degrid_radial2d(
     ``matmul_dtype`` is the JAX precision class, computed by the kernel (and
     by the plain version on a CPU tensor) as `_degrid_kernel` computes it
     (`ops/degrid.py`), on the shapes `degridder_class` gives it; others
-    compute float32.  ``tuning.batched`` launches the same kernel: the
+    compute float32.  With ``wrap`` at bf16x2 and bf16x3 the wrap-edge
+    readouts are float32, as JAX's patch makes them (a second launch; the
+    module's docstring).  ``tuning.batched`` launches the same kernel: the
     Pallas kernel's batched mode is a static unroll over its neighbours
     (`degrid_pallas.py:148-174`), and the CUDA kernel unrolls each
     neighbour row's noff columns statically already."""
@@ -115,7 +124,8 @@ def degrid_radial2d(
         return degrid_radial2d(
             kgrid[None], angles, nro, kernwidth, beta, matmul_dtype, wrap, tuning
         )[0]
-    matmul_dtype = degridder_class(kgrid.shape[-1], nro, matmul_dtype)
+    n = kgrid.shape[-1]
+    matmul_dtype = degridder_class(n, nro, matmul_dtype)
     if kgrid.device.type == "cpu":
         return degrid_radial2d_plain(
             kgrid, angles, nro, kernwidth, beta, wrap=wrap, matmul_dtype=matmul_dtype
@@ -123,17 +133,33 @@ def degrid_radial2d(
     if kgrid.device.type != "cuda":
         raise ValueError(f"no degridding kernel for device {kgrid.device}")
     _check(kgrid, angles, nro, kernwidth)
-    return _launch(to_grid_planes(kgrid), angles, nro, kernwidth, beta, wrap, matmul_dtype)
+    gplanes = to_grid_planes(kgrid)
+    ct, st = torch.cos(angles), torch.sin(angles)
+    out = _launch(gplanes, ct, st, lattice_radii(nro, n, kgrid.device), kernwidth, beta, wrap,
+                  matmul_dtype)
+    if fp32_wrap_edges(matmul_dtype, wrap):
+        idx, rad = _edge_tables(nro, n, kernwidth, kgrid.device)
+        out.index_copy_(-1, idx, _launch(gplanes, ct, st, rad, kernwidth, beta, wrap, "float32"))
+    return out
 
 
-def _launch(gplanes, angles, nro, kernwidth, beta, wrap, matmul_dtype) -> torch.Tensor:
+@functools.cache
+def _edge_tables(nro: int, n: int, kernwidth: float, device: torch.device):
+    """The wrap-edge readouts (`wrap_edge_readouts`) and their radii, on
+    ``device``, cached per geometry.  Read only."""
+    idx = wrap_edge_readouts(nro, n, kernwidth)
+    return idx.to(device), lattice_radii(nro, n)[idx].to(device)
+
+
+def _launch(gplanes, ct, st, rad, kernwidth, beta, wrap, matmul_dtype) -> torch.Tensor:
+    """One kernel launch: grid planes (n, n, 2C), the spokes' cos and sin
+    (npe,) and a radius table (nro,) -> samples (C, npe, nro) complex64.
+    The kernel reads a sample's radius only as ``rad[u]``, so a table of
+    some readouts' radii gives exactly those readouts."""
     global LAUNCHES
     built = _build.load()
     n, _, K = gplanes.shape
-    npe = angles.shape[0]
-    ct = torch.cos(angles)
-    st = torch.sin(angles)
-    rad = lattice_radii(nro, n, gplanes.device)
+    npe, nro = ct.shape[0], rad.shape[0]
     out = torch.empty((K // 2, npe, nro), dtype=torch.complex64, device=gplanes.device)
     with torch.cuda.device(gplanes.device), profiler_range("degrid_radial2d"):
         code = built.lib.tron_degrid_radial2d_planes(

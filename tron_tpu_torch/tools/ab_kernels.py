@@ -1,5 +1,6 @@
 """The float32 kernels of two checkouts side by side on one card: output
-bits, registers and device time.
+bits, registers and device time; and B3 under wrap at bf16x2 and bf16x3,
+with a forward frame at bf16x3.
 
 Run by path, once per checkout, then compare; each run imports the
 `tron_tpu_torch` of ``--root`` (so it can time an older checkout's kernels,
@@ -12,11 +13,15 @@ there on first use:
 
 Each run grids and degrids seeded whole-body inputs (6 coils, nro 512, 204
 spokes, nxos 512) through B1 (integer radii and the exact lattice), B5, B4
-and B3 (kw 2 and 4) at matmul_dtype="float32", and saves the outputs, the
+and B3 (kw 2 and 4) at matmul_dtype="float32", B3 under wrap at bf16x2 and
+bf16x3 (where a checkout may recompute the wrap-edge readouts at float32)
+and one whole-body forward frame at bf16x3 (6 x 256^2 images, 512 spokes of
+512 readouts; its Msamples/s printed), and saves the outputs, the
 device ms per call (CUDA events over 50 calls after a warm-up) and ptxas's
 registers per float32 instantiation (from a build in this run; a reused
 library has no log).  ``--compare`` prints one JSON line: per kernel whether
-the outputs are bitwise equal, each run's ms, and the registers of the
+the outputs are bitwise equal and the readouts (last-axis indices) where
+they differ, each run's ms, and the registers of the
 instantiations both builds have.  Instantiations are named by kernel and
 template arguments; a later source's precision-class argument (float32) and
 rounded-weights flag (off) are dropped so that the names meet.  Needs a
@@ -72,7 +77,9 @@ def run(root: str, out: str) -> None:
 
     from tron_tpu_torch import _build
     from tron_tpu_torch.config import KernelTuning
+    from tron_tpu_torch.config import ReconConfig
     from tron_tpu_torch.kernels.kb import kb_beta
+    from tron_tpu_torch.nufft import nufft_forward
     from tron_tpu_torch.ops import degrid_cuda, grid_cuda
     from tron_tpu_torch.trajectory import spoke_angles
 
@@ -89,6 +96,10 @@ def run(root: str, out: str) -> None:
     ang = spoke_angles(204, "golden", 19000, device=dev)
     beta, b4 = kb_beta(2.0, 2.0), kb_beta(4.0, 2.0)
     grid4 = grid * (8.0 / float(np.i0(b4))) ** 2  # keeps the kw 4 weight products finite
+    im = rng.standard_normal((6, 256, 256)) + 1j * rng.standard_normal((6, 256, 256))
+    img = torch.from_numpy(im.astype(np.complex64)).to(dev)
+    fang = spoke_angles(512, "golden", 0, device=dev)
+    fcfg = ReconConfig(golden_angle=True, data_undersamp=1.0, matmul_dtype="bf16x3")
     calls = {
         "B1": lambda: grid_cuda.grid_radial2d_planes(planes, ang, 512, 2.0, beta),
         "B1 exact lattice": lambda: grid_cuda.grid_radial2d_exact(data, ang, 512, 2.0, beta),
@@ -98,6 +109,11 @@ def run(root: str, out: str) -> None:
                                                      windowed=False),
         "B3": lambda: degrid_cuda.degrid_radial2d(grid, ang, 512, 2.0, beta, wrap=False),
         "B3 kw 4": lambda: degrid_cuda.degrid_radial2d(grid4, ang, 512, 4.0, b4, wrap=False),
+        "B3 bf16x2 wrap": lambda: degrid_cuda.degrid_radial2d(grid, ang, 512, 2.0, beta,
+                                                              matmul_dtype="bf16x2"),
+        "B3 bf16x3 wrap": lambda: degrid_cuda.degrid_radial2d(grid, ang, 512, 2.0, beta,
+                                                              matmul_dtype="bf16x3"),
+        "forward bf16x3": lambda: nufft_forward(img, fang, fcfg, nro=512),
     }
     res = {}
     for name, fn in calls.items():
@@ -114,8 +130,18 @@ def run(root: str, out: str) -> None:
     res["registers"] = np.array(json.dumps(_entries(built.log)))
     res["device"] = np.array(torch.cuda.get_device_name(0))
     np.savez(out, **res)
+    msps = 6 * 512 * 512 / float(res["ms forward bf16x3"]) / 1e3
     print(f"{root}: {', '.join(f'{k[3:]} {float(v):.4f} ms' for k, v in res.items() if k[:3] == 'ms ')}"
-          f" on {res['device']}", flush=True)
+          f"; forward bf16x3 {msps:.1f} Msamples/s on {res['device']}", flush=True)
+
+
+def _differ(a: np.ndarray, b: np.ndarray):
+    """The last-axis indices (readouts, or grid columns) at which two outputs
+    differ in any bit: a list of up to 32, else their count."""
+    if a.shape != b.shape:
+        return "shapes differ"
+    cols = np.flatnonzero((a != b).reshape(-1, a.shape[-1]).any(axis=0)).tolist()
+    return cols if len(cols) <= 32 else len(cols)
 
 
 def compare(paths: list[str]) -> dict:
@@ -131,6 +157,8 @@ def compare(paths: list[str]) -> dict:
             k: {
                 "bitwise_equal": [bool(np.array_equal(runs[0][f"out {k}"], r[f"out {k}"]))
                                   for r in runs[1:]],
+                "readouts_that_differ": [_differ(runs[0][f"out {k}"], r[f"out {k}"])
+                                         for r in runs[1:]],
                 "ms": [float(r[f"ms {k}"]) for r in runs],
             }
             for k in kernels
