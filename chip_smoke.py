@@ -122,11 +122,17 @@ Phases, one line each (any failure raises and exits non-zero):
              library, library, kernel in turns at float32, device time in
              the profiler, its bound, nonzeros, index width, build ms, and a
              bfloat16 try; kbench --library (grid and degrid)
+ 33 bench    python -m tron_tpu_torch.bench in a process of its own, at full
+             size: its twelve sections' line logged, then held to platform
+             gpu, no errors, every key present and finite, route "kernel" and
+             launches of B1 (and B3) in each section that runs them, and the
+             NRMSE limits of incremental, bf16, accurate and the JAX golden
 Phases whose references are fp32 (the JAX goldens, the forward, CGNR and
 solver checks, the -3 forward, the dot tests, the classes' frame 0) pin
 matmul_dtype="float32"; the CLI phases compare like with like.
 Then the kernel table as one JSON line (each kernel's launches on its main
-paths, the recipes' processes of phase 30 left uncounted; error, ms, the
+paths, phase 33's counted by the bench per section, the recipes' processes
+of phase 30 left uncounted; error, ms, the
 passes' device ms, plain ms, bound, and per class the device ms, the error
 against the plain version and the bound; phase 32's library call, its
 device ms, bound, nonzeros and build ms; B1, B4 and B5 share the gridding
@@ -163,11 +169,38 @@ DOT_TOL = 1e-4                        # pair dot test (tests/test_grid_pallas.py
 NITER = 10                            # CGNR iterations of the main path (-i 10)
 NF = 32                               # forward frames
 CG_WALL = 120.0                       # s; above it the CGNR path takes the first 128 frames
-HBM_BYTES_PER_S = 3.35e12             # H100 SXM peak device-memory rate
-FP32_FLOPS = 67e12                    # H100 SXM peak fp32 rate outside the tensor cores
-BF16_TC_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core rate
-TF32_TC_FLOPS = 495e12                # H100 SXM dense TF32 tensor-core rate
-KB_FLOPS = 42                         # one kb_weight: 17 FMA (2 each) + sqrt, div, 6 more
+BENCH_WALL = 480.0                    # s; phase 33's bench process is killed after it
+BENCH_KEYS = (                        # the bench line's keys, one section per row (bench.py's names)
+    "value", "vs_baseline", "frames_per_s", "frames", "seconds_per_run",
+    "incremental_msamples_per_s", "nrmse_incremental_vs_direct", "direct_msamples_per_s",
+    "headline_mode",
+    "nrmse_bf16_vs_fp32", "nrmse_accurate_vs_fp32", "nrmse_fp32_vs_jax_golden",
+    "accurate_msamples_per_s", "accurate_frames",
+    "koosh_slices_per_s", "koosh_slices_per_s_e2e", "koosh_slices_per_s_e2e_half",
+    "degrid_msamples_per_s", "degrid_frames",
+    "adjoint_msamples_per_s_osf15", "adjoint_msamples_per_s_osf25",
+    "degrid_msamples_per_s_osf15", "degrid_msamples_per_s_osf25",
+    "adjoint_msamples_per_s_kw3",
+    "cgnr_pair_s_per_iter", "cgnr_toeplitz_s_per_iter",
+    "cgnr_series_adjoint_wall_s", "cgnr_series_pair_wall_s", "cgnr_series_toeplitz_wall_s",
+    "cgnr_series_adjoint_nrmse_truth", "cgnr_series_pair_nrmse_truth",
+    "cgnr_series_toeplitz_nrmse_truth", "cgnr_series_frames",
+    "walsh_ms_per_frame",
+    "stream_wall_s", "stream_wall_s_all", "stream_wall_compress3_s",
+    "stream_wall_compress3_s_all", "stream_fixture", "stream_frames",
+    "direct_bound_ms", "direct_roofline_pct",
+)
+BENCH_KERNELS = {                     # kernel -> the bench sections that must launch it
+    "grid_radial2d": ("throughput", "incremental", "accuracy", "accurate_throughput", "koosh",
+                      "osf", "kw3", "cgnr_cost", "cgnr_series", "stream_wall"),
+    "degrid_radial2d": ("accuracy", "degrid", "osf", "cgnr_cost", "cgnr_series"),
+}
+BENCH_TOL = {                         # the bench's NRMSEs and their limits
+    "nrmse_incremental_vs_direct": INC_TOL,
+    "nrmse_accurate_vs_fp32": 1e-3,   # BASELINE.md's gate for --precision accurate
+    "nrmse_bf16_vs_fp32": 2e-2,       # bf16 vs fp32 (tests/test_grid_pallas.py:71)
+    "nrmse_fp32_vs_jax_golden": 2e-4,  # degrid vs gather (tests/test_degrid_pallas.py:44)
+}
 
 
 T_START = time.perf_counter()
@@ -206,6 +239,15 @@ def main() -> int:
         recon_frames,
         recon_frames_incremental,
         recon_radial2d,
+    )
+    from tron_tpu_torch.tools.roofline import (  # the least time the card could take
+        BF16_TC_FLOPS,
+        FP32_FLOPS,
+        HBM_BYTES_PER_S,
+        TF32_TC_FLOPS,
+        bound,
+        degrid_bound,
+        grid_bound,
     )
     from tron_tpu_torch.trajectory import spoke_angles
 
@@ -966,51 +1008,6 @@ def main() -> int:
     s = timed(lambda: recon_frames(dcg, ccfg, work, SLIDE, nzt), 1)
     log("timing2", f"CGNR -i {NITER}: {1e3 * s / nzt:.3f} ms per frame ({nzt} frames, host "
         f"stop test each iteration) on {card}")
-
-    # -- bounds: the least time the card could take for a kernel's work -----
-    def bound(nbytes: float, flops: float, rate: float = FP32_FLOPS):
-        """max(bytes / memory rate, operations / their peak rate), in ms, and which."""
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
-        return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
-
-    def support(r, c, n, kww=kw):
-        """Grid points X in [-n/2, n-1-n/2] with |r*c - X| < kww, per sample."""
-        h = n // 2
-        p = r * c
-        lo = torch.clamp(torch.floor(p - kww) + 1, min=-h)
-        hi = torch.clamp(torch.ceil(p + kww) - 1, max=n - 1 - h)
-        return torch.clamp(hi - lo + 1, min=0)
-
-    def work_of(radii, angles, n, K, passes=1, kww=kw):
-        """(term flops, KB flops) this data needs: per sample with terms, one
-        KB per x- and y-neighbour, then per (sample, pixel) term one weight
-        product and, per class pass, K channel FMAs (2 flops each)."""
-        a = angles.double()[:, None]
-        cx = support(radii.double()[None, :], torch.cos(a), n, kww)
-        cy = support(radii.double()[None, :], torch.sin(a), n, kww)
-        live = (cx > 0) & (cy > 0)
-        terms = float((cx * cy).sum())
-        return terms * (2 * K * passes + 1), KB_FLOPS * float(((cx + cy) * live).sum())
-
-    def grid_bound(planes, angles, nxos, passes=1, tc=None):
-        """Gridding on integer radii: planes and angles in, grids out; row 0
-        is never gridded.  tc: the tensor-core rate the term products run at
-        (B5), where the KB weights stay on the fp32 units."""
-        npe, nR, K = planes.shape
-        radii = (torch.arange(nR, device=dev, dtype=torch.float64) - nxos // 2)[1:]
-        nbytes = planes.numel() * 4 + angles.numel() * 4 + (K // 2) * nxos * nxos * 8
-        terms, kb_ops = work_of(radii, angles, nxos, K, passes)
-        if tc is None:
-            return bound(nbytes, terms + kb_ops)
-        return max(bound(nbytes, kb_ops), bound(nbytes, terms, tc))
-
-    def degrid_bound(kgrid, angles, nro, passes=1, kww=kw):
-        """Degridding, clip: grid and angles in (radius table included),
-        samples out."""
-        C, n, _ = kgrid.shape
-        flops = sum(work_of(lattice_radii(nro, n, dev), angles, n, 2 * C, passes, kww))
-        nbytes = kgrid.numel() * 8 + angles.numel() * 4 + nro * 4 + C * angles.numel() * nro * 8
-        return bound(nbytes, flops)
 
     # -- 16 seg: the segmented gridding kernel (windowed=False, B4) ----------
     from tron_tpu_torch.config import KernelTuning
@@ -2228,6 +2225,48 @@ def main() -> int:
         f"CGNR frame: {d_bound * 1e3:.3f} us ({d_by}); H100 SXM {HBM_BYTES_PER_S / 1e12} TB/s, "
         f"{FP32_FLOPS / 1e12:g} TFLOP/s fp32")
 
+    # -- 33 bench: python -m tron_tpu_torch.bench at full size, a fresh process
+    torch.cuda.empty_cache()
+    t33 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        p = subprocess.Popen([sys.executable, "-m", "tron_tpu_torch.bench"], cwd=ROOT, text=True,
+                             stdout=subprocess.PIPE, stderr=err, start_new_session=True)
+        try:
+            so, _ = p.communicate(timeout=BENCH_WALL)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+            so = ""
+        err.seek(0)
+        se = err.read()
+    lines = so.strip().splitlines()
+    require(bool(lines), f"bench: exit {p.returncode}, no result line\n{se[-6000:]}")
+    log("bench", f"python -m tron_tpu_torch.bench: exit {p.returncode} in "
+        f"{time.perf_counter() - t33:.1f} s; its line: {lines[-1]}")
+    bres = json.loads(lines[-1])
+    require(p.returncode == 0 and bres["errors"] == {}, f"bench errors {bres['errors']}\n{se[-6000:]}")
+    require((bres["platform"], bres["mode"], bres["frames"], bres["degrid_frames"],
+             bres["cgnr_series_frames"], bres["stream_frames"]) == ("gpu", "full", NZ, NZ, 137, NZ),
+            f"bench ran {bres['platform']}, {bres['mode']}, frames {bres['frames']}")
+    bad = [k for k in BENCH_KEYS if not (isinstance(bres.get(k), str) or all(
+        np.isfinite(v) for v in np.atleast_1d(np.asarray(bres.get(k), dtype=float))))]
+    require(not bad, f"bench keys missing or not finite: { {k: bres.get(k) for k in bad} }")
+    for kernel, sections in BENCH_KERNELS.items():
+        for name in sections:
+            sec = bres["sections"][name]
+            require(sec["route"] == "kernel" and sec["launches"][kernel] > 0,
+                    f"bench section {name}: route {sec['route']}, launches {sec['launches']}")
+    for key, tol in BENCH_TOL.items():
+        require(bres[key] < tol, f"bench {key} {bres[key]:.3e} (tol {tol})")
+    bench_launches = {k: sum(sec["launches"][k] for sec in bres["sections"].values())
+                      for k in ("grid_radial2d", "degrid_radial2d")}
+    log("bench", f"{bres['value']:.1f} Msamples/s ({bres['headline_mode']}), direct "
+        f"{bres['direct_msamples_per_s']:.1f}, incremental {bres['incremental_msamples_per_s']:.1f}; "
+        f"NRMSE incremental {bres['nrmse_incremental_vs_direct']:.2e}, bf16 "
+        f"{bres['nrmse_bf16_vs_fp32']:.2e}, accurate {bres['nrmse_accurate_vs_fp32']:.2e}, JAX golden "
+        f"{bres['nrmse_fp32_vs_jax_golden']:.2e}; launches {bench_launches}; sections' s "
+        f"{ {k: round(v['wall_s'], 1) for k, v in bres['sections'].items()} } on {card}")
+
     require("jax" not in sys.modules, "JAX was imported")
     common = {"route": "cuda", "bound_ms": g_bound, "bound_by": g_by}
 
@@ -2259,7 +2298,8 @@ def main() -> int:
             "source": "tron_tpu_torch/csrc/grid_radial2d.cu",
             **by_class("grid_radial2d"),
             "replaces": "tron_tpu/ops/grid_pallas.py:933",
-            "launches": launches + cg_grid + stream_b1 + new_counts["grid_radial2d"],
+            "launches": launches + cg_grid + stream_b1 + new_counts["grid_radial2d"]
+            + bench_launches["grid_radial2d"],
             "max_abs_err": err512,
             "ms": kern_ms,
             "kernel_ms": kern_dev_ms,
@@ -2317,7 +2357,8 @@ def main() -> int:
             **by_class("degrid_radial2d"),
             **by_class("degrid_radial2d (kw 4)", "_kw4"),
             "replaces": "tron_tpu/ops/degrid_pallas.py:44",
-            "launches": fwd_launches + fwd3_launches + cg_degrid + new_counts["degrid_radial2d"],
+            "launches": fwd_launches + fwd3_launches + cg_degrid + new_counts["degrid_radial2d"]
+            + bench_launches["degrid_radial2d"],
             "max_abs_err": derr512,
             "max_abs_err_kw4": derr_wide[4.0],
             "max_abs_err_kw6.5": derr_wide[6.5],
