@@ -249,6 +249,7 @@ def main() -> int:
         degrid_bound,
         grid_bound,
     )
+    from tron_tpu_torch.tracing import SPANS
     from tron_tpu_torch.trajectory import spoke_angles
 
     def nrmse(a, b) -> float:
@@ -562,9 +563,8 @@ def main() -> int:
         f"on {card}")
 
     grid_pass = re.compile(r"grid_(?:tile|seg)_\w+?_kernel")
-    # under a profiler each wrapper names its launches in a range, which the
+    # under a profiler the port's spans (`tracing.SPANS`) are ranges the
     # trace mirrors on the device's timeline: not a kernel, not busy time
-    wrapper_ranges = {*grid_cuda.KERNELS, "degrid_radial2d"}
 
     def device_passes(fn, n=20, rx=grid_pass, expect=1):
         """Device us per call of each kernel that ``fn`` launches whose name
@@ -582,7 +582,7 @@ def main() -> int:
             got = {rx.search(e.key).group(0): e.self_device_time_total / n
                    for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA and rx.search(e.key)
-                   and e.key not in wrapper_ranges}
+                   and e.key not in SPANS}
             if len(got) >= expect:
                 break
             log("profiler", f"session {attempt + 1} saw {sorted(got)} of {expect} kernels; again")
@@ -1252,7 +1252,7 @@ def main() -> int:
             wall = time.perf_counter() - t0
         require(rc == 0, f"profiled --stream: exit {rc}")
         ka = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in wrapper_ranges]
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in SPANS]
         busy = sum(e.self_device_time_total for e in ka) / 1e6
         # every gridding kernel's passes: grid_tile_* (B1, B5, and the items
         # and reduce passes of B4) and grid_seg_* (B4)
@@ -1818,10 +1818,11 @@ def main() -> int:
         with open(os.path.join(path("prof"), traces[0])) as f:
             trace = f.read()
         log("cli3", f"--profile DIR: {traces[0][:11]}...trace.json, {len(trace) / 1e3:.0f} kB, names "
-            f"grid_radial2d: {'grid_radial2d' in trace}, the contraction pass: "
-            f"{'grid_tile_contract_kernel' in trace}")
-        require("grid_radial2d" in trace and "grid_tile_contract_kernel" in trace,
-                "the --profile trace does not name the gridding kernel")
+            f"tron.grid_radial2d: {'tron.grid_radial2d' in trace}, tron.frame: "
+            f"{'tron.frame' in trace}, the contraction pass: {'grid_tile_contract_kernel' in trace}")
+        require("tron.grid_radial2d" in trace and "tron.frame" in trace
+                and "grid_tile_contract_kernel" in trace,
+                "the --profile trace does not name the gridding kernel and the frames")
         fresh_counts()
         rc = cli.main(["-a", "-k", "7", "-g", "0", path("data.ra"), path("o7.ra")])
         log("cli3", f"tron-torch -a -k 7: exit {rc}, launches {sum(counts_now().values())}")

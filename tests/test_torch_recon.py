@@ -8,6 +8,7 @@ the port's kernel wrappers take the kernel's plain version.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -300,7 +301,8 @@ def test_cli_refuses_unported_flags(tmp_path, capsys, argv, flag):
 def test_cli_new_flags_match_tron(tmp_path, indata, monkeypatch, extra, jax_extra):
     """Every flag this CLI newly takes, through `tron` and `tron-torch` on
     the same .ra: the same images.  --profile also leaves a Chrome trace
-    (tron's own profile is a jax.profiler trace, so tron runs without it).
+    that holds the port's spans (tron's own profile is a jax.profiler
+    trace, so tron runs without it).
 
     linear_full puts spoke 0 at exactly 90 degrees, its samples on grid
     columns, where the last bit of a coordinate decides whether a window's
@@ -331,6 +333,9 @@ def test_cli_new_flags_match_tron(tmp_path, indata, monkeypatch, extra, jax_extr
     if "--profile" in extra:
         traces = [f for f in os.listdir(prof) if f.endswith(".trace.json")]
         assert len(traces) == 1 and os.path.getsize(os.path.join(prof, traces[0])) > 0
+        with open(os.path.join(prof, traces[0])) as f:
+            names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+        assert {"tron.relayout", "tron.frame", "tron.readback"} <= names
     if "--dft-dot" in extra:  # ignored: the same file as without the flag
         assert cli.main(base + ["-G", str(fin), str(tmp_path / "plain.ra")]) == 0
         np.testing.assert_array_equal(got, ra_read(tmp_path / "plain.ra"))

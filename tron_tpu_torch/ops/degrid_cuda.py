@@ -31,9 +31,9 @@ import torch
 from tron_tpu_torch import _build
 from tron_tpu_torch.ops.degrid import degrid_radial2d as degrid_radial2d_plain
 from tron_tpu_torch.ops.degrid import fp32_wrap_edges, lattice_radii, wrap_edge_readouts
-from tron_tpu_torch.ops.grid_cuda import profiler_range
 from tron_tpu_torch.ops.precision import MATMUL_DTYPES
 from tron_tpu_torch.ops.precision import check as _check_dtype
+from tron_tpu_torch.tracing import span
 
 LAUNCHES = 0
 
@@ -161,7 +161,7 @@ def _launch(gplanes, ct, st, rad, kernwidth, beta, wrap, matmul_dtype) -> torch.
     n, _, K = gplanes.shape
     npe, nro = ct.shape[0], rad.shape[0]
     out = torch.empty((K // 2, npe, nro), dtype=torch.complex64, device=gplanes.device)
-    with torch.cuda.device(gplanes.device), profiler_range("degrid_radial2d"):
+    with torch.cuda.device(gplanes.device), span("tron.degrid_radial2d"):
         code = built.lib.tron_degrid_radial2d_planes(
             gplanes.data_ptr(), ct.data_ptr(), st.data_ptr(), rad.data_ptr(),
             out.data_ptr(), npe, nro, n, K, int(2 * kernwidth) + 1, int(bool(wrap)),

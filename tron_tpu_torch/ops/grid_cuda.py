@@ -32,12 +32,12 @@ CPU.  A kernel failure is never caught to fall back.
 ``LAUNCH_COUNTS`` counts launches per kernel (one per wrapper call that
 reached the card), so a run can show which kernel its main path went
 through; ``LAUNCHES`` reads their total and ``reset_launches()`` zeroes
-them.
+them.  Under a profiler each wrapper call is one span, ``tron.<kernel>``
+(`tracing.py`), on the card and on the CPU alike.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
@@ -54,9 +54,11 @@ from tron_tpu_torch.ops.grid import (
 from tron_tpu_torch.ops.grid import grid_radial2d as grid_radial2d_plain
 from tron_tpu_torch.ops.precision import MATMUL_DTYPES, bf16
 from tron_tpu_torch.ops.precision import check as _check_dtype
+from tron_tpu_torch.tracing import span
 
 KERNELS = ("grid_radial2d", "grid_radial2d_batched", "grid_seg_radial2d")
 LAUNCH_COUNTS = dict.fromkeys(KERNELS, 0)
+_SPANS = {k: f"tron.{k}" for k in KERNELS}
 
 # The tile kernels' weight windows, floor(2*kernwidth) + 3 pixels per axis,
 # take at most 16 lanes each (csrc/grid_tiles.cuh).
@@ -74,13 +76,11 @@ def reset_launches() -> None:
         LAUNCH_COUNTS[k] = 0
 
 
-def profiler_range(name: str):
-    """While a torch profiler records (``tron-torch --profile``), a range
-    that names the kernel a wrapper launches in the trace; otherwise
-    nothing, so the wrappers pay nothing for it."""
-    if getattr(torch.autograd.profiler, "_is_profiler_enabled", False):
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+def _kernel(windowed: bool, tuning) -> str:
+    """The kernel a wrapper call is routed to (a key of ``KERNELS``)."""
+    if not windowed:
+        return "grid_seg_radial2d"
+    return "grid_radial2d_batched" if tuning is not None and tuning.batched else "grid_radial2d"
 
 
 def _planes(ds: torch.Tensor) -> torch.Tensor:
@@ -175,20 +175,23 @@ def grid_radial2d_planes(
     1/(nxos*npe).  ``matmul_dtype`` is the JAX precision class, computed as
     `gridder_class` says.  ``windowed=False`` takes the segmented kernel
     (B4); ``tuning.batched`` the tensor-core one (B5)."""
-    cls, round_samples = gridder_class(nxos, matmul_dtype, windowed)
-    if planes.device.type == "cpu":
+    name = _kernel(windowed, tuning)
+    with span(_SPANS[name]):
+        cls, round_samples = gridder_class(nxos, matmul_dtype, windowed)
+        if planes.device.type == "cpu":
+            if round_samples:
+                planes = bf16(planes)
+            if not windowed:
+                return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta,
+                                                   matmul_dtype=cls)
+            return grid_radial2d_planes_plain(planes, angles, nxos, kernwidth, beta,
+                                              matmul_dtype=cls)
+        if planes.device.type != "cuda":
+            raise ValueError(f"no gridding kernel for device {planes.device}")
+        _check_planes(planes, angles, nxos)
         if round_samples:
             planes = bf16(planes)
-        if not windowed:
-            return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta,
-                                               matmul_dtype=cls)
-        return grid_radial2d_planes_plain(planes, angles, nxos, kernwidth, beta, matmul_dtype=cls)
-    if planes.device.type != "cuda":
-        raise ValueError(f"no gridding kernel for device {planes.device}")
-    _check_planes(planes, angles, nxos)
-    if round_samples:
-        planes = bf16(planes)
-    return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning, cls)
+        return _launch(planes, angles, nxos, kernwidth, beta, None, windowed, tuning, cls)
 
 
 @functools.cache
@@ -229,7 +232,9 @@ def _launch(
         npe, nR, nxos, K, kw, float(beta), 1.0 / (nxos * npe),
     )
     code = MATMUL_DTYPES.index(cls)
-    if not windowed:
+    name = _kernel(windowed, tuning)
+    fn = getattr(lib, f"tron_{name}_planes")
+    if name == "grid_seg_radial2d":
         lattice = None if rad is None else nR
         starts, seg = _segments(nxos, kw, lattice, planes.device)
         if seg > 128:
@@ -240,18 +245,13 @@ def _launch(
         slots = cull.seg_slots(npe, nxos, kw, lattice)
         nbytes = _workspace_bytes(lib, "tron_grid_seg_radial2d_workspace_bytes", npe, nR,
                                   nxos, K, kw, slots)
-        name, fn = "grid_seg_radial2d", lib.tron_grid_seg_radial2d_planes
         extra = (starts.data_ptr(), seg, cull.wedge_margin(kw), slots, code)
     else:
         nbytes = _workspace_bytes(lib, "tron_grid_radial2d_workspace_bytes", npe, nR, nxos, K,
                                   kw)
         extra = (code,)
-        if tuning is not None and tuning.batched:
-            name, fn = "grid_radial2d_batched", lib.tron_grid_radial2d_batched_planes
-        else:
-            name, fn = "grid_radial2d", lib.tron_grid_radial2d_planes
     work = torch.empty(int(nbytes), dtype=torch.uint8, device=planes.device)
-    with torch.cuda.device(planes.device), profiler_range(name):
+    with torch.cuda.device(planes.device):
         code = fn(*args, *extra, work.data_ptr(), work.numel(),
                   torch.cuda.current_stream(planes.device).cuda_stream)
     _build.check(lib, code, f"{name} kernel")
@@ -309,21 +309,23 @@ def grid_radial2d_exact(
     degridding kernel at any gridos.  Readout 0 is never gridded.  data:
     (C, npe, nro) complex; returns (C, nxos, nxos) complex64 scaled by
     1/(nxos*npe), at the class `gridder_class` gives the exact lattice."""
-    cls, _ = gridder_class(nxos, matmul_dtype, windowed, exact=True)
-    nro = data.shape[-1]
-    if data.device.type == "cpu" and windowed:
-        return grid_radial2d_plain(
-            drop_readout0(data), angles, nxos, kernwidth, beta, pe_chunk=pe_chunk,
-            raw_rows=True, matmul_dtype=cls,
-        )
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no gridding kernel for device {data.device}")
-    if data.dim() != 3:
-        raise ValueError(f"data must be (C, npe, nro), got {tuple(data.shape)}")
-    planes = _planes(data)
-    rad = lattice_radii(nro, nxos, data.device)
-    if data.device.type == "cpu":
-        return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta, rad=rad,
-                                           matmul_dtype=cls)
-    _check_planes(planes, angles, nxos, exact=True)
-    return _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning, cls)
+    name = _kernel(windowed, tuning)
+    with span(_SPANS[name]):
+        cls, _ = gridder_class(nxos, matmul_dtype, windowed, exact=True)
+        nro = data.shape[-1]
+        if data.device.type == "cpu" and windowed:
+            return grid_radial2d_plain(
+                drop_readout0(data), angles, nxos, kernwidth, beta, pe_chunk=pe_chunk,
+                raw_rows=True, matmul_dtype=cls,
+            )
+        if data.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"no gridding kernel for device {data.device}")
+        if data.dim() != 3:
+            raise ValueError(f"data must be (C, npe, nro), got {tuple(data.shape)}")
+        planes = _planes(data)
+        rad = lattice_radii(nro, nxos, data.device)
+        if data.device.type == "cpu":
+            return grid_radial2d_planes_culled(planes, angles, nxos, kernwidth, beta, rad=rad,
+                                               matmul_dtype=cls)
+        _check_planes(planes, angles, nxos, exact=True)
+        return _launch(planes, angles, nxos, kernwidth, beta, rad, windowed, tuning, cls)

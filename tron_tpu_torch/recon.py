@@ -8,6 +8,8 @@ output (the JAX package's ``lax.map`` / ``lax.scan``).  The frame schedulers
 take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when the coils
 they are given are one shard of a mesh's 'coil' axis: the coil combine and
 the CGNR inner products then finish over that axis (`parallel/mesh.py`).
+Under a profiler the host driver's stages, each scheduler's sample prep
+and each frame are spans (`tracing.py`).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from tron_tpu_torch.ops import grid_cuda
 from tron_tpu_torch.ops.coil import coil_combine_sos, coil_combine_walsh, coil_compress
 from tron_tpu_torch.parallel.distributed import MeshAxis, all_gather_cat, psum
 from tron_tpu_torch.solver import cgnr_radial2d
+from tron_tpu_torch.tracing import span
 from tron_tpu_torch.trajectory import spoke_angles
 
 
@@ -43,9 +46,10 @@ def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
     planes on the device before the transfer (2x fewer bytes) and
     recombines on the host, value-identical to a later host-side --half
     store."""
-    if half:
-        return _from_half_planes(_to_half_planes(dev).cpu().numpy())
-    return dev.cpu().numpy()
+    with span("tron.readback"):
+        if half:
+            return _from_half_planes(_to_half_planes(dev).cpu().numpy())
+        return dev.cpu().numpy()
 
 
 def _to_half_planes(dev: torch.Tensor) -> torch.Tensor:
@@ -84,11 +88,13 @@ def _combine(
 
 def _map_frames(one, nz: int) -> torch.Tensor:
     """Frames 0..nz-1 in order, written into one preallocated output."""
-    first = one(0)
-    out = first.new_empty((nz,) + tuple(first.shape))
-    out[0] = first
+    with span("tron.frame"):
+        first = one(0)
+        out = first.new_empty((nz,) + tuple(first.shape))
+        out[0] = first
     for z in range(1, nz):
-        out[z] = one(z)
+        with span("tron.frame"):
+            out[z] = one(z)
     return out
 
 
@@ -128,8 +134,9 @@ def recon_frames(
         # (SDC, edge mask, complex->plane relayout) out of the frame loop;
         # each frame is then a contiguous slice of the spoke axis
         nxos = int((nro // 2) * cfg.gridos)
-        w = sdc_weights(cfg, nro, npe1work, data.device).to(data.dtype)
-        planes = grid_cuda.to_sample_planes(data * w, nxos)
+        with span("tron.prep"):
+            w = sdc_weights(cfg, nro, npe1work, data.device).to(data.dtype)
+            planes = grid_cuda.to_sample_planes(data * w, nxos)
         scheme = cfg.scheme_for("adjoint")
 
         def one(z):
@@ -188,12 +195,15 @@ def recon_frames_incremental(
     scheme = cfg.scheme_for("adjoint")
     # SDC weights use the *frame* spoke count (reference parity,
     # src/tron.cu:405-416) and are applied once, upstream of every call
-    w = sdc_weights(cfg, nro, npe1work, data.device).to(data.dtype)
-    dw = data * w
+    on_planes = planes_path_ok(cfg)
+    with span("tron.prep"):
+        w = sdc_weights(cfg, nro, npe1work, data.device).to(data.dtype)
+        src = data * w                                    # (C, npe1, nro)
+        if on_planes:
+            _kernel_backend(cfg, data.device)
+            src = grid_cuda.to_sample_planes(src, nxos)   # (npe1, nxos, 2C)
 
-    if planes_path_ok(cfg):
-        _kernel_backend(cfg, data.device)
-        src = grid_cuda.to_sample_planes(dw, nxos)   # (npe1, nxos, 2C)
+    if on_planes:
         spoke_axis = 0
 
         tuning = cfg.kernel_tuning()
@@ -205,7 +215,6 @@ def recon_frames_incremental(
             )
 
     else:
-        src = dw                                      # (C, npe1, nro)
         spoke_axis = -2
         backend = _grid_backend(cfg, data.device)
 
@@ -240,21 +249,23 @@ def incremental_scan(
     them with its own 1/(nxos*m) scale, which deltas re-scale to the frame's
     1/(nxos*work) here; ``frame_image(kgrid)`` runs epilogue + combine.
     """
-    kg = gridw(window(z0 * slide, work), angles_of(z0 * slide, work))
-    img0 = frame_image(kg)
-    out = img0.new_empty((nframes,) + tuple(img0.shape))
-    out[0] = img0
+    with span("tron.frame"):
+        kg = gridw(window(z0 * slide, work), angles_of(z0 * slide, work))
+        img0 = frame_image(kg)
+        out = img0.new_empty((nframes,) + tuple(img0.shape))
+        out[0] = img0
     # every gridding call scales by 1/(nxos * npe_of_call); deltas must carry
     # the frame scale 1/(nxos * work) instead
     corr = (2.0 * slide) / work
     for i in range(1, nframes):
-        pe0 = (z0 + i - 1) * slide
-        win = torch.cat([-window(pe0, slide), window(pe0 + work, slide)], dim=spoke_axis)
-        ang = torch.cat([angles_of(pe0, slide), angles_of(pe0 + work, slide)])
-        # the carried grid is owned here (a fresh gridder output), so it is
-        # updated in place where the JAX scan carries a new array
-        kg += gridw(win, ang) * corr
-        out[i] = frame_image(kg)
+        with span("tron.frame"):
+            pe0 = (z0 + i - 1) * slide
+            win = torch.cat([-window(pe0, slide), window(pe0 + work, slide)], dim=spoke_axis)
+            ang = torch.cat([angles_of(pe0, slide), angles_of(pe0 + work, slide)])
+            # the carried grid is owned here (a fresh gridder output), so it
+            # is updated in place where the JAX scan carries a new array
+            kg += gridw(win, ang) * corr
+            out[i] = frame_image(kg)
     return out
 
 
@@ -288,11 +299,14 @@ def recon_radial2d(
     nc, nt, nro, npe1 = indata.shape[:4]
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     # ops layout: channels = nt*nc, spokes, readout
-    dnp = np.ascontiguousarray(
-        np.transpose(indata.reshape(nc, nt, nro, npe1, -1)[..., 0], (1, 0, 3, 2)),
-        dtype=np.complex64,
-    ).reshape(nt * nc, npe1, nro)
-    d = torch.from_numpy(dnp).to(device)
+    with span("tron.relayout"):
+        dnp = np.ascontiguousarray(
+            np.transpose(indata.reshape(nc, nt, nro, npe1, -1)[..., 0], (1, 0, 3, 2)),
+            dtype=np.complex64,
+        ).reshape(nt * nc, npe1, nro)
+        h = torch.from_numpy(dnp)
+    with span("tron.upload"):
+        d = h.to(device)
     if 0 < cfg.coil_compress < nc:
         # per repetition, from that repetition's own samples
         dc = d.reshape(nt, nc, npe1, nro)

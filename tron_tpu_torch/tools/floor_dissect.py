@@ -63,14 +63,12 @@ def _timer(fn, reps=5, warm=2):
 
 def busy_ms(fn, device: torch.device) -> float | None:
     """Milliseconds in which the card is busy during one call of fn: the
-    union of the device intervals the profiler records (the wrappers' named
-    ranges, which the trace mirrors on the device, left out).  None on the
-    CPU."""
+    union of the device intervals the profiler records (the port's spans,
+    which the trace mirrors on the device, left out).  None on the CPU."""
     if device.type != "cuda":
         return None
-    from tron_tpu_torch.ops import grid_cuda
+    from tron_tpu_torch.tracing import SPANS as ranges
 
-    ranges = {*grid_cuda.KERNELS, "degrid_radial2d"}
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize(device)
     with torch.profiler.profile(activities=acts) as prof:
