@@ -567,3 +567,175 @@ def test_sharded_scheduler_at_world_1_is_the_unsharded_one(dev):
         assert grid_cuda.LAUNCHES - n1 == n1 - n0 == nz
         assert torch.equal(got, want)
 
+
+
+# -- the frame loop's CUDA graph -------------------------------------------------
+
+
+def _fresh_graphs():
+    from tron_tpu_torch import recon
+
+    recon._graphs.clear()
+    recon.reset_frame_graph_counts()
+    grid_cuda.reset_launches()
+    return recon
+
+
+def _eager_chain(data, cfg, work, slide, nz, skip0):
+    """The hoisted path frame by frame, eagerly, each frame's angles from
+    its own `spoke_angles` call."""
+    from tron_tpu_torch.nufft import nufft_adjoint_planes, sdc_weights
+    from tron_tpu_torch.recon import _combine
+
+    nro = data.shape[-1]
+    w = sdc_weights(cfg, nro, work, data.device).to(data.dtype)
+    planes = grid_cuda.to_sample_planes(data * w, int((nro // 2) * cfg.gridos))
+    scheme = cfg.scheme_for("adjoint")
+    return torch.stack([
+        _combine(nufft_adjoint_planes(
+            planes[z * slide : z * slide + work],
+            spoke_angles(work, scheme, cfg.skip_angles + skip0 + z * slide, device=data.device),
+            cfg), cfg)
+        for z in range(nz)
+    ])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["sos", "walsh", "none"])
+@pytest.mark.parametrize("nc,nro,nz,matmul_dtype", [(3, 128, 6, "float32"),
+                                                    (6, 512, 8, "bfloat16")])
+def test_frame_graph_replays_the_eager_chain(dev, combine, nc, nro, nz, matmul_dtype):
+    """recon_frames on the card captures one frame's chain once per
+    geometry and replays it for every later frame: bitwise the eager
+    chain, at a small geometry and at whole-body shape (-u 0.4 -d 21, 6
+    coils, 512 readouts, bfloat16).  A second call captures nothing and
+    replays nz - 1 frames more; the counter of the gridding kernel grows by
+    nz a call, a launch that reached the card per frame."""
+    from tron_tpu_torch.config import ReconConfig
+
+    cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
+                      coil_combine=combine, matmul_dtype=matmul_dtype)
+    work = int(nro * 0.4)
+    d = torch.from_numpy(_host_complex(nro + nz, (nc, work + (nz - 1) * 21, nro))).to(dev)
+    assert cfg.frame_geometry(nro, d.shape[1]) == (work, 21, nz)
+    recon = _fresh_graphs()
+    got = recon.recon_frames(d, cfg, work, 21, nz, 19000)
+    assert recon.FRAME_GRAPH_COUNTS == {"captured": 1, "replayed": nz - 1, "eager": 1}
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == grid_cuda.LAUNCHES == nz
+    again = recon.recon_frames(d, cfg, work, 21, nz, 19000)
+    assert recon.FRAME_GRAPH_COUNTS == {"captured": 1, "replayed": 2 * (nz - 1), "eager": 2}
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == grid_cuda.LAUNCHES == 2 * nz
+    want = _eager_chain(d, cfg, work, 21, nz, 19000)
+    assert got.shape == want.shape and torch.isfinite(torch.view_as_real(want)).all()
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.gpu
+def test_frame_graph_one_per_geometry(dev):
+    """Another frame length is another geometry: a second graph; the
+    first is still cached and replays without a capture."""
+    from tron_tpu_torch.config import ReconConfig
+
+    d = torch.from_numpy(_host_complex(8, (2, 200, 128))).to(dev)
+    recon = _fresh_graphs()
+    for u, captured in ((0.4, 1), (0.5, 2), (0.4, 2)):
+        cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=u, prof_slide=21,
+                          matmul_dtype="float32")
+        work, slide, nz = cfg.frame_geometry(128, 200)
+        got = recon.recon_frames(d, cfg, work, slide, nz)
+        assert recon.FRAME_GRAPH_COUNTS["captured"] == captured
+        assert torch.equal(got, _eager_chain(d, cfg, work, slide, nz, 0))
+    assert len(recon._graphs) == 2
+
+
+def _eager_frames(frame, window, angles, nz, cfg):
+    from tron_tpu_torch.recon import _map_frames
+
+    return _map_frames(lambda z: frame(window(z), angles[z]), nz)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["stream", "koosh", "koosh-stream"])
+def test_frame_graph_in_the_streamed_and_koosh_recons(dev, tmp_path, monkeypatch, mode):
+    """The streamed recon (per block, its loader and reader threads copying
+    during the capture) and the -3 recon (per slice) replay the graph and
+    give the bits of the same recon with every frame run eagerly."""
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.io import ra_write
+    from tron_tpu_torch.recon import (
+        recon_koosh_streaming,
+        recon_radial2d,
+        recon_radial2d_streaming,
+    )
+
+    koosh = mode.startswith("koosh")
+    shape = (4, 1, 128, 7 * 32 + 5, 6) if koosh else (4, 1, 256, 102 + 40 * 21, 1)
+    d = _host_complex(9, shape)
+    cfg = ReconConfig(adjoint=True, golden_angle=True, koosh=koosh, matmul_dtype="float32",
+                      data_undersamp=0.25 if koosh else 0.4, prof_slide=0 if koosh else 21)
+    ra_write(d, tmp_path / "d.ra")
+    recon = _fresh_graphs()
+    if mode == "stream":
+        got = recon_radial2d_streaming(tmp_path / "d.ra", cfg, batch_frames=16, device=dev)
+    elif mode == "koosh-stream":
+        got = recon_koosh_streaming(tmp_path / "d.ra", cfg, batch_frames=3, device=dev)
+    else:
+        got = recon_radial2d(d, cfg, device=dev)
+    counts = dict(recon.FRAME_GRAPH_COUNTS)
+    assert counts["captured"] == 1 and counts["replayed"] > counts["eager"] > 0
+    monkeypatch.setattr(recon, "_graph_frames", _eager_frames)
+    want = recon_radial2d(d if koosh else d[..., 0], cfg, device=dev)
+    assert recon.FRAME_GRAPH_COUNTS["replayed"] == counts["replayed"]
+    assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["incremental", "cgnr", "forward", "sharded-coils"])
+def test_frame_graph_bypassed(dev, monkeypatch, path):
+    """The incremental scheduler, CGNR, the forward operator and a sharded
+    coil axis (a collective inside the combine; a stand-in here) run no
+    graph."""
+    from tron_tpu_torch.config import ReconConfig
+    from tron_tpu_torch.parallel.distributed import MeshAxis
+
+    cfg = ReconConfig(adjoint=path != "forward", golden_angle=True, data_undersamp=0.4,
+                      prof_slide=21, incremental=path == "incremental",
+                      niter=2 if path == "cgnr" else 0, matmul_dtype="float32")
+    recon = _fresh_graphs()
+    if path == "forward":
+        recon.recon_radial2d(_host_complex(10, (2, 1, 64, 64, 2)), cfg, device=dev)
+    elif path == "sharded-coils":
+        monkeypatch.setattr(recon, "psum", lambda x, axis: x)
+        d = torch.from_numpy(_host_complex(11, (2, 93, 128))).to(dev)
+        recon.recon_frames(d, cfg, 51, 21, 3, coil_axis=MeshAxis("coil", 2, 0, None))
+    else:
+        recon.recon_radial2d(_host_complex(12, (2, 1, 128, 93)), cfg, device=dev)
+    torch.cuda.synchronize()
+    assert recon.FRAME_GRAPH_COUNTS["captured"] == recon.FRAME_GRAPH_COUNTS["replayed"] == 0
+    assert recon.FRAME_GRAPH_COUNTS["eager"] == {"cgnr": 3, "sharded-coils": 3}.get(path, 0)
+
+
+@pytest.mark.gpu
+def test_frame_graph_under_the_profiler(dev):
+    """A capture and its replays inside a profiler's session: the trace
+    holds the capture's span, one graph launch and one B1 contraction a
+    replayed frame (the benchmark's traced run checks the gridding
+    counter against those kernels), and the bits of the eager chain."""
+    from tron_tpu_torch.config import ReconConfig
+
+    cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
+                      matmul_dtype="float32")
+    d = torch.from_numpy(_host_complex(13, (3, 51 + 5 * 21, 128))).to(dev)
+    recon = _fresh_graphs()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = recon.recon_frames(d, cfg, 51, 21, 6)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() != cuda]
+    kernels = [e.name() for e in events if e.device_type() == cuda]
+    assert host.count("tron.frame_graph") == 1 and host.count("cudaGraphLaunch") == 5
+    contract = sum("grid_tile_contract_kernel" in n for n in kernels)
+    assert contract == grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 6
+    assert torch.equal(got, _eager_chain(d, cfg, 51, 21, 6, 0))

@@ -108,6 +108,22 @@ def test_every_kernel_has_its_span():
     assert all(n.startswith("tron.") for n in tracing.SPANS)
 
 
+def test_every_span_the_port_opens_is_listed():
+    """Each ``span("tron.…")`` in the port's sources names one of SPANS,
+    the frame graph's capture among them, and every listed name is
+    opened somewhere (the kernels' by ``grid_cuda._SPANS``)."""
+    port = Path(tracing.__file__).resolve().parent
+    opened = set()
+    for path in sorted(port.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "span" \
+                    and node.args and isinstance(node.args[0], ast.Constant):
+                opened.add(node.args[0].value)
+    assert "tron.frame_graph" in opened
+    assert opened <= set(tracing.SPANS)
+    assert set(tracing.SPANS) - opened == set(grid_cuda._SPANS.values())
+
+
 def test_benchmark_readers_match_recorded_spans():
     """Every span name the benchmark's per-layer readers match is one the
     port records."""

@@ -30,7 +30,8 @@ the sum over each tile's listed segments), and only because it lies on the
 CPU.  A kernel failure is never caught to fall back.
 
 ``LAUNCH_COUNTS`` counts launches per kernel (one per wrapper call that
-reached the card), so a run can show which kernel its main path went
+reached the card; a replayed CUDA graph adds the calls it captured,
+`recon._FrameGraph`), so a run can show which kernel its main path went
 through; ``LAUNCHES`` reads their total and ``reset_launches()`` zeroes
 them.  Under a profiler each wrapper call is one span, ``tron.<kernel>``
 (`tracing.py`), on the card and on the CPU alike.

@@ -4,16 +4,25 @@ the forward operator over image stacks, and the 3-D stack-of-stars (`-3`)
 recon, in memory and streamed.
 
 Frames run in order in a Python loop, each written into one preallocated
-output (the JAX package's ``lax.map`` / ``lax.scan``).  The frame schedulers
-take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when the coils
-they are given are one shard of a mesh's 'coil' axis: the coil combine and
-the CGNR inner products then finish over that axis (`parallel/mesh.py`).
-Under a profiler the host driver's stages, each scheduler's sample prep
-and each frame are spans (`tracing.py`).
+output (the JAX package's ``lax.map`` / ``lax.scan``).  On the card the
+direct scheduler's hoisted path replays one CUDA graph a frame: the frame's
+device chain is captured once per geometry (`_FrameGraph`) and each frame
+copies its window and angles into the graph's static inputs.  The frame
+schedulers take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when
+the coils they are given are one shard of a mesh's 'coil' axis: the coil
+combine and the CGNR inner products then finish over that axis
+(`parallel/mesh.py`).  Under a profiler the host driver's stages, each
+scheduler's sample prep, each frame and each capture are spans
+(`tracing.py`).
+
+``FRAME_GRAPH_COUNTS`` counts the direct scheduler's graph captures, its
+frames replayed from a graph and its frames run eagerly;
+``reset_frame_graph_counts()`` zeroes them.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
@@ -38,7 +47,18 @@ from tron_tpu_torch.ops.coil import coil_combine_sos, coil_combine_walsh, coil_c
 from tron_tpu_torch.parallel.distributed import MeshAxis, all_gather_cat, psum
 from tron_tpu_torch.solver import cgnr_radial2d
 from tron_tpu_torch.tracing import span
-from tron_tpu_torch.trajectory import spoke_angles
+from tron_tpu_torch.trajectory import spoke_angle_table, spoke_angles
+
+FRAME_GRAPH_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
+# captured frame chains kept, most recently used last; each holds ~50 MB of
+# the card at whole-body size (B1's workspace, the k-space grid, the FFT's)
+_GRAPHS_KEPT = 4
+_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+def reset_frame_graph_counts() -> None:
+    for k in FRAME_GRAPH_COUNTS:
+        FRAME_GRAPH_COUNTS[k] = 0
 
 
 def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
@@ -131,21 +151,28 @@ def recon_frames(
     nro = data.shape[-1]
     if cfg.niter == 0 and planes_path_ok(cfg):
         # hoist the once-per-acquisition half of the gridder's sample prep
-        # (SDC, edge mask, complex->plane relayout) out of the frame loop;
-        # each frame is then a contiguous slice of the spoke axis
+        # (SDC, edge mask, complex->plane relayout) and every frame's angles
+        # out of the frame loop; each frame is then a contiguous slice of
+        # the spoke axis and a row of the table
         nxos = int((nro // 2) * cfg.gridos)
         with span("tron.prep"):
             w = sdc_weights(cfg, nro, npe1work, data.device).to(data.dtype)
             planes = grid_cuda.to_sample_planes(data * w, nxos)
-        scheme = cfg.scheme_for("adjoint")
+            skips = cfg.skip_angles + skip0 + prof_slide * torch.arange(nz, device=data.device)
+            angles = spoke_angle_table(npe1work, cfg.scheme_for("adjoint"), skips)
+
+        def frame(win, ang):
+            return _combine(nufft_adjoint_planes(win, ang, cfg), cfg, coil_axis)
+
+        def window(z):
+            return planes[z * prof_slide : z * prof_slide + npe1work]
+
+        # a sharded coil axis puts a collective inside the combine
+        if planes.is_cuda and (coil_axis is None or coil_axis.size == 1):
+            return _graph_frames(frame, window, angles, nz, cfg)
 
         def one(z):
-            pe0 = z * prof_slide
-            win = planes[pe0 : pe0 + npe1work]
-            angles = spoke_angles(
-                npe1work, scheme, cfg.skip_angles + skip0 + pe0, device=data.device
-            )
-            return _combine(nufft_adjoint_planes(win, angles, cfg), cfg, coil_axis)
+            return frame(window(z), angles[z])
 
     else:
 
@@ -154,7 +181,71 @@ def recon_frames(
             win = data[..., pe0 : pe0 + npe1work, :]
             return reconstruct_frame(win, cfg.skip_angles + skip0 + pe0, cfg, coil_axis)
 
+    FRAME_GRAPH_COUNTS["eager"] += nz
     return _map_frames(one, nz)
+
+
+class _FrameGraph:
+    """One frame's device chain ``frame(win, ang)`` captured as a CUDA graph
+    on static copies of ``win`` and ``ang``.  A call copies a frame's window
+    and angles into them, replays the graph on the current stream and
+    returns its static output, which the next call overwrites.
+
+    The capture launches nothing on the card, so the gridding kernels'
+    launch counts are taken back after it and each replay adds what the
+    chain launches.  The capture is thread-local: the streamed recon's
+    loader and reader threads copy on their own streams meanwhile.  A failed
+    capture raises."""
+
+    def __init__(self, frame, win: torch.Tensor, ang: torch.Tensor):
+        self.win, self.ang = win.clone(), ang.clone()
+        before = dict(grid_cuda.LAUNCH_COUNTS)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(win.device):
+            stream = torch.cuda.Stream(win.device)
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.out = frame(self.win, self.ang)
+        self.launches = {k: grid_cuda.LAUNCH_COUNTS[k] - n for k, n in before.items()}
+        grid_cuda.LAUNCH_COUNTS.update(before)
+
+    def __call__(self, win: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+        self.win.copy_(win)
+        self.ang.copy_(ang)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            grid_cuda.LAUNCH_COUNTS[k] += n
+        return self.out
+
+
+def _graph_frames(frame, window, angles: torch.Tensor, nz: int, cfg: ReconConfig) -> torch.Tensor:
+    """``_map_frames`` on the card: frame 0 eagerly (it sizes the output
+    and, on a geometry's first call, warms cuFFT's plan and the kernels'
+    library before the capture), every later frame a replay of the graph
+    cached for this geometry.  The key holds all the chain depends on: the
+    window's device, shape and dtype, the configuration and the kernel
+    tuning it resolves to."""
+    with span("tron.frame"):
+        first = frame(window(0), angles[0])
+        out = first.new_empty((nz,) + tuple(first.shape))
+        out[0] = first
+    FRAME_GRAPH_COUNTS["eager"] += 1
+    if nz == 1:
+        return out
+    win = window(0)
+    key = (win.device, tuple(win.shape), win.dtype, cfg, cfg.kernel_tuning())
+    graph = _graphs.pop(key, None)
+    if graph is None:
+        with span("tron.frame_graph"):
+            graph = _FrameGraph(frame, win, angles[0])
+        FRAME_GRAPH_COUNTS["captured"] += 1
+    _graphs[key] = graph
+    while len(_graphs) > _GRAPHS_KEPT:
+        _graphs.popitem(last=False)
+    for z in range(1, nz):
+        with span("tron.frame"):
+            out[z] = graph(window(z), angles[z])
+    FRAME_GRAPH_COUNTS["replayed"] += nz - 1
+    return out
 
 
 def incremental_applicable(cfg: ReconConfig, work: int, slide: int, nz: int) -> bool:

@@ -14,6 +14,8 @@ the port records:
   (density compensation, the sample planes);
 - ``tron.frame``: one frame of a frame loop, its write into the output
   included;
+- ``tron.frame_graph``: the capture of one frame's device chain as a CUDA
+  graph (`recon.recon_frames`, once per geometry);
 - ``tron.readback``: the images' copy to the host, the queue's drain
   included;
 - ``tron.<kernel>`` for each gridding kernel (`ops/grid_cuda.KERNELS`):
@@ -34,6 +36,7 @@ SPANS = (
     "tron.upload",
     "tron.prep",
     "tron.frame",
+    "tron.frame_graph",
     "tron.readback",
     "tron.grid_radial2d",
     "tron.grid_radial2d_batched",

@@ -69,6 +69,16 @@ def spoke_angles(
     raise ValueError(f"unknown angle scheme {scheme!r}")
 
 
+def spoke_angle_table(npe: int, scheme: str, skips: torch.Tensor) -> torch.Tensor:
+    """Float32 angles of the npe spokes of k frames, (k, npe), on skips'
+    device: ``skips`` (k,) int64 holds each frame's global profile offset.
+    Row i is bitwise ``spoke_angles(npe, scheme, int(skips[i]))``: the same
+    float32 operations, broadcast over a (k, 1) skip (a linear scheme's
+    one row repeats)."""
+    angles = spoke_angles(npe, scheme, skips[:, None], device=skips.device)
+    return angles.expand(skips.shape[0], npe)
+
+
 def ramlak_sdc(nro: int, npe: int, device=None) -> torch.Tensor:
     """Implicit Ram-Lak density compensation along the readout:
     sdc[ro] = a*|ro - nro/2| + b, a = (2 - 2/npe)/nro, b = 1/npe
