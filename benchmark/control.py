@@ -1,9 +1,10 @@
 """The readings a cell's correctness limit is set from (`limits/<cell>.json`):
 for each seed, the worst frame error of one whole series that the program's
-timed entry returns, and that of the control, the plain reference with its
-gridding operands rounded to float8 e4m3 (the precision
-below the configuration's bfloat16), both against the float32 reference on
-the same input.  The reference at bfloat16 is read beside them.
+timed entry returns, and that of the control, the plain reference the
+cell's mix names with its contraction operands (gridding or degridding)
+rounded to float8 e4m3 (the precision below the configuration's bfloat16),
+both against the float32 reference on the same input.  The reference at
+bfloat16 is read beside them.
 
     python3 -m benchmark.control --workload <cell> --seeds 1,2,3 [--out FILE]
 
@@ -24,26 +25,28 @@ import numpy as np
 QUANTS = ("bfloat16", "float8_e4m3")
 
 
-def readings(cell, seed: int, device) -> dict:
+def readings(cell, seed: int, device, block: int = 32) -> dict:
     """The program's, the control's and the bfloat16 reference's worst
-    frame errors on one series of ``seed``."""
-    from benchmark import check, traffic
+    frame errors on one series of ``seed``, ``block`` frames at a time."""
+    from benchmark import check, spec, traffic
     from benchmark.program import Program
-    from benchmark.reference.recon import Series
 
     geo = traffic.geometry(cell)
     indata = traffic.make_input(geo, seed, device)
     program = Program(cell.recon, cell.config["precision"], device)
     served = program.series(indata)
     del program
-    ref = Series(indata, cell.recon, device)
-    frames = list(range(geo["nz"]))
-    truth = ref.frames(frames)
-    out = {"seed": seed,
-           "program": float(check.frame_errors(served, truth).max())}
-    for q in QUANTS:
-        out["ref_" + q] = float(check.frame_errors(ref.frames(frames, q), truth).max())
-    return out
+    ref = spec.reference(cell).Series(indata, cell.recon, device)
+    worst = dict.fromkeys(("program",) + tuple("ref_" + q for q in QUANTS), 0.0)
+    for b0 in range(0, geo["nz"], block):
+        frames = list(range(b0, min(b0 + block, geo["nz"])))
+        truth = ref.frames(frames, block=block)
+        got = {"program": served[b0:b0 + len(frames)]}
+        got.update({"ref_" + q: ref.frames(frames, q, block=block) for q in QUANTS})
+        for k, v in got.items():
+            e = np.nan_to_num(check.frame_errors(v, truth), nan=np.inf)
+            worst[k] = max(worst[k], float(e.max()))
+    return {"seed": seed, **worst}
 
 
 def main(argv=None) -> int:

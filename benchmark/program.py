@@ -1,6 +1,7 @@
 """The program under test as the benchmark drives it: the port's host-to-host
-recon entry, `tron_tpu_torch.recon.recon_radial2d`, and its gridding
-kernel's launch counter.  The only module of the benchmark that imports the port.
+recon entry, `tron_tpu_torch.recon.recon_radial2d`, in either direction,
+and its kernels' launch counters.  The only module of the benchmark that
+imports the port.
 """
 
 from __future__ import annotations
@@ -11,14 +12,14 @@ import torch
 
 class Program:
     """The port loaded for one cell on ``device``: its configuration, the
-    one timed call and the counter the trace is checked against."""
+    one timed call and the counters the trace is checked against."""
 
     def __init__(self, recon: dict, precision: str, device: torch.device):
         from tron_tpu_torch import recon as port_recon
         from tron_tpu_torch.config import ReconConfig
-        from tron_tpu_torch.ops import grid_cuda
+        from tron_tpu_torch.ops import degrid_cuda, grid_cuda
 
-        self._recon, self._grid = port_recon, grid_cuda
+        self._recon, self._grid, self._degrid = port_recon, grid_cuda, degrid_cuda
         self.cfg = ReconConfig(**recon, matmul_dtype=precision)
         self.device = device
         if device.type == "cuda":
@@ -29,11 +30,17 @@ class Program:
             _build.load()
 
     def series(self, indata: np.ndarray) -> np.ndarray:
-        """One series host to host: samples in `.ra` dims (nc, 1, nro, npe1)
-        -> combined images (nz, n, n) complex64 in host memory."""
-        return self._recon.recon_radial2d(indata, self.cfg, device=self.device)[:, 0]
+        """One series host to host, one array per frame on the first axis:
+        adjoint, samples in `.ra` dims (nc, 1, nro, npe1) -> combined images
+        (nz, n, n); forward, images in `.ra` dims (nc, 1, nx, ny, nz) ->
+        samples (nz, nc, npe1, nro); complex64 in host memory."""
+        out = self._recon.recon_radial2d(indata, self.cfg, device=self.device)
+        return out[:, 0] if self.cfg.adjoint else out[:, :, 0]
 
     def counters(self) -> dict:
-        """Launches so far of the default gridding kernel (B1): one per
-        wrapper call that reached the card."""
-        return {"grid": self._grid.LAUNCH_COUNTS["grid_radial2d"]}
+        """Launches so far of each kernel the benchmark checks the trace
+        against, by a part of its name as the profiler records it: the
+        default gridding kernel (B1) one contraction per wrapper call that
+        reached the card, the degridding kernel (B3) one per launch."""
+        return {"grid_tile_contract_kernel": self._grid.LAUNCH_COUNTS["grid_radial2d"],
+                "degrid_radial2d_kernel": self._degrid.LAUNCHES}

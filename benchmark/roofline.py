@@ -4,11 +4,12 @@ move (each input read once, each output written once) over the card's
 memory rate, and the operations its inputs need over the peak rate of the
 units that do them.
 
-Counted from the geometry alone (spokes, readouts, grid size, channels and
-the angles), never from a kernel's own work items or from the program's
-tensors.  A frozen copy of the arithmetic of the port's roofline helpers:
-the program may change its copy, the benchmark's stays as it is, and a
-test holds the two together at the benchmark's frame shapes.
+Counted from the geometry alone (spokes, readouts, grid size, channels,
+the angles and the readouts' radii worked out from them), never from a
+kernel's own work items or from the program's tensors.  A frozen copy of
+the arithmetic of the port's roofline helpers: the program may change its
+copy, the benchmark's stays as it is, and a test holds the two together at
+the benchmark's frame shapes.
 """
 
 from __future__ import annotations
@@ -60,3 +61,13 @@ def grid_bound(npe: int, K: int, angles: torch.Tensor, nxos: int,
     nbytes = npe * nxos * K * 4 + npe * 4 + (K // 2) * nxos * nxos * 8
     return bound(nbytes, sum(work_of(radii, angles.cpu(), nxos, K, kww)))
 
+
+def degrid_bound(npe: int, C: int, angles: torch.Tensor, n: int, nro: int,
+                 kww: float) -> tuple[float, str]:
+    """One degridding call, clip: C grids (n, n) complex64, the angles and
+    the nro readouts' radii (u/nro - 1/2) n (float32, as the program's
+    table) in, C x npe x nro complex64 samples out."""
+    radii = (torch.arange(nro, dtype=torch.float32) / nro - 0.5) * n
+    flops = sum(work_of(radii, angles.cpu(), n, 2 * C, kww))
+    nbytes = C * n * n * 8 + npe * 4 + nro * 4 + C * npe * nro * 8
+    return bound(nbytes, flops)

@@ -6,18 +6,19 @@ In one process, in this order: load the port (on a checkout's first run its
 kernels are built), make the cell's input from the seed, warm up with one
 whole series, then run series back to back for ``--seconds`` in a closed
 loop, one researcher with one card: each series is one call of
-`tron_tpu_torch.recon.recon_radial2d`, samples in host memory to images in
-host memory, timed by the host clock around the call.  Once the window has
-closed the kept images are compared with the plain reference's
+`tron_tpu_torch.recon.recon_radial2d`, host memory to host memory (samples
+to images, or images to samples where the mix runs the forward), timed by
+the host clock around the call.  Once the window has closed the kept
+frames are compared with those of the plain reference the mix names
 (`check.py`), and the last line of standard output is one JSON object.
 
 ``--trace 0`` reports the cell's end-to-end metrics.  ``--trace 1``
 profiles whole series at the start of the window (again, at most three
-times in all, when the profile holds no device kernel or fewer kernels
-than the port's counters launched) and reports the per-layer metrics that
-`metrics/<name>.py` read from it, with the device's busy time and a
-breakdown.  A card is needed: without one, or with fewer than the cell
-asks for, the run exits 2 and prints no result.
+times in all, when the profile holds no device kernel or, of a kernel the
+port's counters saw launched, fewer than they counted) and reports the
+per-layer metrics that `metrics/<name>.py` read from it, with the device's
+busy time and a breakdown.  A card is needed: without one, or with fewer
+than the cell asks for, the run exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -114,7 +115,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device) -> dict:
             return
         times.append(time.perf_counter() - t0)
         ends.append(time.perf_counter())
-        # the whole images are held only until the series kept whole has run
+        # the whole output is held only until the series kept whole has run
         last = (i, out) if i < plan.whole else None
         idx = plan.frames(i)
         kept[i] = (idx, out[idx] if len(idx) < geo["nz"] else out)
@@ -131,7 +132,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device) -> dict:
             events = tr.profile(one, n)
             counters = {k: v - before[k] for k, v in program.counters().items()}
             traced = tr.reduce(events, geo)
-            got = {"grid": traced.kernel_us(("grid_tile_contract_kernel",))[1]}
+            got = {k: traced.kernel_us((k,))[1] for k in counters}
             short = [k for k in counters if got[k] < counters[k]]
             if len(traced.series) == n and traced.kernels() and not short:
                 break
@@ -169,7 +170,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device) -> dict:
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
             log(f"trace: {len(traced.series)} series, {traced.frames} frames, "
-                f"{traced.launches} launch calls, B1 launches by the counter {counters['grid']}")
+                f"{traced.launches} launch calls, kernel launches by the counters {counters}, "
+                f"in the profile {got}")
     else:
         for m in cell.end_to_end:
             metrics[m["name"]] = {"value": end_to_end(m["name"], times, span, len(times), geo,
@@ -181,7 +183,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device) -> dict:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     limit = cell.limits["frame_rel_err"]["limit"]
-    res = check.compare(indata, cell.recon, kept, device)
+    res = check.compare(indata, spec.reference(cell), cell.recon, kept, device)
     bad = {i for i, w in res["worst"].items() if not w <= limit}
     worst = max(res["worst"].values(), default=float("nan"))
     log(f"reference: {res['frames']} frames of {len(kept)} series compared in "

@@ -1,10 +1,11 @@
 """Finds a cell's parts by name: its entry in `BENCHMARK.json`, its
 configuration (`configs/<config>.json`), its traffic mix
-(`traffic/<traffic>.json`), its correctness limits (`limits/<cell>.json`)
-and the reader of each per-layer metric it reports (`metrics/<name>.py`,
-a module with ``read(trace) -> float | None``).  A later change adds a
-configuration, a mix or a metric as new files and entries and edits none
-of these.
+(`traffic/<traffic>.json`), its correctness limits (`limits/<cell>.json`),
+the plain reference its mix names (`reference/<name>.py`, "recon" unless
+the mix says otherwise) and the reader of each per-layer metric it reports
+(`metrics/<name>.py`, a module with ``read(trace) -> float | None``).  A
+later change adds a configuration, a mix, a reference or a metric as new
+files and entries and edits none of these.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ class Cell:
     def recon(self) -> dict:
         """The recon's settings: the configuration's, then the mix's changes."""
         return {**self.config["recon"], **self.traffic["recon"]}
+
+    @property
+    def reference(self) -> str:
+        """The name of the plain reference the mix is compared with."""
+        return self.traffic.get("reference", "recon")
 
 
 def _load_json(path: Path) -> dict:
@@ -64,10 +70,23 @@ def load_cell(name: str, root: Path = HERE, spec_file: Path | None = None) -> Ce
     )
 
 
-def metric_reader(name: str, root: Path = HERE):
-    """The ``read`` function of `metrics/<name>.py` under ``root``."""
-    path = root / "metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name}", path)
+def _load_module(path: Path, name: str):
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, root: Path = HERE):
+    """The ``read`` function of `metrics/<name>.py` under ``root``."""
+    return _load_module(root / "metrics" / f"{name}.py", f"benchmark_metric_{name}").read
+
+
+def reference(cell: Cell):
+    """The plain reference the cell's mix names, `reference/<name>.py` under
+    the cell's root: a module with ``SETTINGS`` (the recon settings it works
+    out, each with the values it takes, None for any) and ``Series(indata,
+    recon, device)``, whose ``frames(zs, quant=..., block=...)`` returns one
+    tensor per frame of ``zs``, stacked on the first axis."""
+    name = cell.reference
+    return _load_module(cell.root / "reference" / f"{name}.py", f"benchmark_reference_{name}")

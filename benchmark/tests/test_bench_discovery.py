@@ -3,15 +3,18 @@ schema, and a run's last line has the keys a benchmark runner reads."""
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 import torch
 
 from benchmark import run, spec, traffic
-from benchmark.tests.conftest import BENCH
+from benchmark.tests.conftest import BENCH, make_tiny_root
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -89,11 +92,77 @@ def test_discovery_of_added_files(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
     cell = spec.load_cell("other.slow", root)
     assert cell.config["nc"] == 3 and cell.recon["niter"] == 2
+    assert cell.reference == "recon"
     assert [m["name"] for m in cell.per_layer] == ["answer"]
     assert spec.metric_reader("answer", root)(None) == 42.0
     assert traffic.traced_series(cell, traffic.geometry(cell)) == 1
     with pytest.raises(KeyError):
         spec.load_cell("other.fast", root)
+
+
+def test_a_mix_names_its_reference(tmp_path):
+    """A mix that names a reference module added in a temporary root is
+    compared with it, with no edit to `check.py` or `run.py`: a copy of the
+    adjoint's reference that doubles its frames makes the run read each
+    frame 0.5 off."""
+    root = make_tiny_root(tmp_path)
+    src = (root / "reference" / "recon.py").read_text()
+    (root / "reference" / "twice.py").write_text(
+        src + "\n\n_frames = Series.frames\n"
+        "Series.frames = lambda self, *a, **k: 2 * _frames(self, *a, **k)\n")
+    mix = json.loads((root / "traffic" / "tinyadjoint.json").read_text())
+    (root / "traffic" / "tinytwice.json").write_text(json.dumps({**mix, "reference": "twice"}))
+    s = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    s["workloads"].append({"name": "tiny.twice", "config": "tiny", "traffic": "tinytwice",
+                           "chips": 1, "why": "test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(s))
+    shutil.copy(root / "limits" / "tiny.adjoint.json", root / "limits" / "tiny.twice.json")
+    cell = spec.load_cell("tiny.twice", root)
+    assert Path(spec.reference(cell).__file__) == root / "reference" / "twice.py"
+    r = run.run_cell(cell, 2**31 + 8, 0.2, False, torch.device("cpu"))
+    assert r["correct"] is False
+    assert r["checks"]["frame_rel_err"]["value"] == pytest.approx(0.5, rel=1e-4)
+
+
+def test_forward_geometry_is_its_configurations_own(tiny_root):
+    """A forward series takes nx and nz from its configuration and sizes
+    its spokes as TRON's forward does, never from an adjoint's npe1 and
+    slide; a configuration that states no nx cannot run the forward."""
+    cell = spec.load_cell("tiny.forward", tiny_root)
+    cell = dataclasses.replace(cell, config={**cell.config, "nx": 40, "nz": 5, "npe1": 10**6})
+    geo = traffic.geometry(cell)
+    assert (geo["n"], geo["nz"], geo["nro"], geo["nxos"], geo["work"], geo["npe1"],
+            geo["slide"]) == (40, 5, 80, 80, 32, 32, 0)
+    assert traffic.make_input(geo, 3, torch.device("cpu")).shape == (2, 1, 40, 40, 5)
+    cell = dataclasses.replace(cell, config={k: v for k, v in cell.config.items() if k != "nx"})
+    with pytest.raises(ValueError, match="nx"):
+        traffic.geometry(cell)
+
+
+# sha256 of the parent's `traffic.make_input` for the tiny adjoint geometry,
+# on the CPU's generator, and of the adjoint's reference as it stands
+ADJOINT_INPUT_SHA256 = {
+    2**31 + 3: "7a870c595606d53949445e6eeaa292b5b9944d3cf82f94b21bbda66113625738",
+    7: "486b63c580868559788cd0b0f0b44fd324c6c99195802b9917071f44053008a2"}
+RECON_REFERENCE_SHA256 = "5ebece66f67d810d739e3523af3daac8d1409f564a0ae5e332e139fa88bbe931"
+
+
+@pytest.mark.parametrize("seed", sorted(ADJOINT_INPUT_SHA256))
+def test_adjoint_input_and_reference_are_unchanged(tiny_root, seed):
+    """The adjoint's input is the same bytes, seed for seed, drawn as it
+    always was (torch.randn on the generator seeded with seed mod 2**64,
+    in `.ra` dims, C order), and `whole_body.adjoint` resolves to
+    `reference/recon.py` as it was."""
+    geo = traffic.geometry(spec.load_cell("tiny.adjoint", tiny_root))
+    x = traffic.make_input(geo, seed, torch.device("cpu"))
+    g = torch.Generator().manual_seed(seed % 2**64)
+    want = torch.randn((2, 1, 64, 74), generator=g, dtype=torch.complex64).numpy()
+    assert x.flags.c_contiguous and x.shape == want.shape
+    assert x.tobytes() == want.tobytes()
+    assert hashlib.sha256(x.tobytes()).hexdigest() == ADJOINT_INPUT_SHA256[seed]
+    mod = spec.reference(spec.load_cell("whole_body.adjoint"))
+    assert Path(mod.__file__) == BENCH / "reference" / "recon.py"
+    assert hashlib.sha256(Path(mod.__file__).read_bytes()).hexdigest() == RECON_REFERENCE_SHA256
 
 
 @pytest.mark.parametrize("trace", [False, True])

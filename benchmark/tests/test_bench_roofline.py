@@ -1,6 +1,6 @@
 """The benchmark's frozen roofline arithmetic against the port's copy
 (`tron_tpu_torch/tools/roofline.py`) at the configuration's frame shapes,
-and the gridding kernels' share read from the geometry."""
+and the gridding and degridding kernels' shares read from the geometry."""
 
 from __future__ import annotations
 
@@ -49,4 +49,51 @@ def test_grid_roofline_counts_work_from_the_geometry(tiny_root, passes):
     got = spec.metric_reader("grid_roofline_pct", tiny_root)(t)
     assert got == pytest.approx(100.0 * 2 * bound_us / (2 * g["nz"] * per_frame), rel=1e-12)
     assert spec.metric_reader("grid_roofline_pct", tiny_root)(
+        trace.Trace(series, device[-1:], [], 0, g)) is None
+
+
+# a forward frame at whole-body sizes: 6 coils of 256 x 256 images at gridos 2
+# onto int(0.4 x 512) = 204 spokes of 512 readouts, kernel half-width 2
+FORWARD_FRAME = {"work": 204, "nc": 6, "nxos": 512, "nro": 512, "kernwidth": 2.0}
+
+
+@pytest.mark.parametrize("skip", [0, 7, 20000])
+def test_frozen_degrid_bound_equals_the_ports(skip):
+    from tron_tpu_torch.tools import roofline as port
+
+    g = FORWARD_FRAME
+    angles = golden_angles(g["work"], skip)
+    kgrid = torch.empty((g["nc"], g["nxos"], g["nxos"]), dtype=torch.complex64)
+    assert roofline.degrid_bound(g["work"], g["nc"], angles, g["nxos"], g["nro"],
+                                 g["kernwidth"]) == \
+        port.degrid_bound(kgrid, angles, g["nro"], kww=g["kernwidth"])
+
+
+def test_whole_body_sized_forward_frame_is_bound_by_bytes():
+    """12.6 MB of grids in, 5.0 MB of samples out a frame of whole-body
+    sizes: 5.254 us at 3.35 TB/s."""
+    ms, by = roofline.degrid_bound(204, 6, golden_angles(204, 0), 512, 512, 2.0)
+    assert by == "bytes" and ms == pytest.approx(5.2535e-3, rel=1e-4)
+
+
+@pytest.mark.parametrize("passes", [1, 2])
+def test_degrid_roofline_counts_work_from_the_geometry(tiny_root, passes):
+    """The share is every frame's bound over B3's device time, its
+    wrap-edge launches with it: degridding each frame twice halves it; a
+    profile without B3 reads None."""
+    cell = spec.load_cell("tiny.forward", tiny_root)
+    g = traffic.geometry(cell)
+    bound_us = 1e3 * g["nz"] * roofline.degrid_bound(
+        g["work"], g["nc"], golden_angles(g["work"], g["skip"]), g["nxos"], g["nro"],
+        g["kernwidth"])[0]
+    series = [(0.0, 100.0), (100.0, 200.0)]
+    per_frame = 3.0 * passes
+    device = [(s + z, s + z + per_frame / passes,
+               "void (anonymous namespace)::degrid_radial2d_kernel<4, 4, 8, 0>(...)")
+              for s, _ in series for z in range(g["nz"]) for _ in range(passes)]
+    device.append((5.0, 50.0, "Memcpy HtoD (Pageable -> Device)"))
+    t = trace.Trace(series, device, [], 0, g)
+    got = spec.metric_reader("degrid_roofline_pct", tiny_root)(t)
+    assert got == pytest.approx(100.0 * 2 * bound_us / (2 * g["nz"] * per_frame), rel=1e-12)
+    assert spec.metric_reader("degrid_roofline_pct", tiny_root)(
         trace.Trace(series, device[-1:], [], 0, g)) is None

@@ -80,6 +80,18 @@ def test_tiny_traced_series_read_the_span_metrics(tiny_root):
         assert spec.metric_reader(name, tiny_root)(t) > 0, name
 
 
+def test_tiny_forward_traced_series_read_the_frame_spans(tiny_root):
+    """The forward's frame loop opens `tron.frame` spans too: its profiled
+    series read ``frame_host_ms``, and none of the adjoint's host spans."""
+    cell = spec.load_cell("tiny.forward", tiny_root)
+    t = _profiled_series(cell, torch.device("cpu"), 2**31 + 13,
+                         traffic.traced_series(cell, traffic.geometry(cell)))
+    assert len(t.series) == 2
+    assert spec.metric_reader("frame_host_ms", tiny_root)(t) > 0
+    for name in ("relayout_ms", "h2d_ms", "d2h_ms"):
+        assert spec.metric_reader(name, tiny_root)(t) is None
+
+
 @pytest.mark.gpu
 def test_spans_share_the_device_clock(tiny_root, card):
     """On the card: the input's HtoD copy starts inside `tron.upload`, the

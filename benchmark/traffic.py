@@ -3,15 +3,22 @@ like and how much of it is traced and checked, from the configuration's
 file and the traffic mix's file (`traffic/<name>.json`):
 
 - ``recon``: the mix's changes to the configuration's recon settings;
+  ``"adjoint": false`` makes the series a forward one;
+- ``reference``: the plain reference it is compared with,
+  `reference/<name>.py` ("recon" where the mix names none);
 - ``traced_msamples``: a traced run profiles whole series until they hold
   at least this many million coil-samples (at least one series);
 - ``check_frames``: the frames of each series kept for the comparison with
   the reference, drawn from the seed; one series, drawn from the seed among
   the first three, is kept whole.
 
-Every series of a run takes the same input: complex64 samples in `.ra`
-dims (nc, 1, nro, npe1), drawn on the device from ``--seed`` and copied
-once to host memory.  The seed changes the data, never the shapes.
+Every series of a run takes the same input, drawn on the device from
+``--seed`` in one call and copied once into host memory that numpy
+allocated, as the `.ra` reader's is.  An adjoint series takes complex64
+samples in `.ra` dims (nc, 1, nro, npe1); a forward one takes nz frames of
+complex64 coil images in `.ra` dims (nc, 1, nx, ny, nz), laid out as
+`ra_read` returns them: Fortran order, the C array of the reversed dims
+viewed transposed.  The seed changes the data, never the shapes.
 """
 
 from __future__ import annotations
@@ -26,18 +33,32 @@ from benchmark.spec import Cell
 
 
 def geometry(cell: Cell) -> dict:
-    """The series' shapes from the configuration's file."""
-    c = cell.config
-    work, slide, nz = frame_geometry(cell.recon, c["nro"], c["npe1"])
-    n = c["nro"] // 2
-    return {"nc": c["nc"], "nro": c["nro"], "npe1": c["npe1"], "work": work, "slide": slide,
-            "nz": nz, "n": n, "nxos": int(n * cell.recon["gridos"]),
-            "kernwidth": float(cell.recon["kernwidth"]),
-            "skip": int(cell.recon["skip_angles"]), "niter": int(cell.recon["niter"])}
+    """The series' shapes from the configuration's file.  An adjoint series
+    grids nz sliding-window frames of ``work`` spokes out of the npe1 the
+    configuration states.  A forward one synthesises each of the nz frames
+    of nx x nx coil images that its configuration states (``nx``, ``nz``)
+    into int(u nro) spokes of nro = gridos nx readouts, as TRON's forward
+    sizes its output, on the one angle set that starts at ``skip_angles``
+    (so ``slide`` 0)."""
+    c, r = cell.config, cell.recon
+    if r["adjoint"]:
+        work, slide, nz = frame_geometry(r, c["nro"], c["npe1"])
+        n, nro, npe1 = c["nro"] // 2, c["nro"], c["npe1"]
+    else:
+        if "nx" not in c or "nz" not in c:
+            raise ValueError(f"configuration {c.get('name')} states no image size nx and "
+                             f"frame count nz for a forward series")
+        n, nz, slide = int(c["nx"]), int(c["nz"]), 0
+        nro = int(n * r["gridos"])
+        work = npe1 = int(nro * r["data_undersamp"])
+    return {"adjoint": bool(r["adjoint"]), "nc": c["nc"], "nro": nro, "npe1": npe1,
+            "work": work, "slide": slide, "nz": nz, "n": n, "nxos": int(n * r["gridos"]),
+            "kernwidth": float(r["kernwidth"]), "skip": int(r["skip_angles"]),
+            "niter": int(r.get("niter", 0))}
 
 
 def series_samples(geo: dict) -> int:
-    """Coil-samples a series grids: nz nc nro work."""
+    """Coil-samples a series grids or synthesises: nz nc nro work."""
     return geo["nz"] * geo["nc"] * geo["nro"] * geo["work"]
 
 
@@ -47,15 +68,20 @@ def traced_series(cell: Cell, geo: dict) -> int:
 
 
 def make_input(geo: dict, seed: int, device: torch.device) -> np.ndarray:
-    """The series' samples from ``seed``, made on ``device`` in one call
-    and copied into an array that numpy allocated, as the `.ra` reader's
-    are (numpy asks the kernel for huge pages for large arrays)."""
+    """The series' input from ``seed``, made on ``device`` in one call and
+    copied into an array that numpy allocated, as the `.ra` reader's is
+    (numpy asks the kernel for huge pages for large arrays): the samples of
+    an adjoint series, or the images of a forward one, complex Gaussian."""
     g = torch.Generator(device=device).manual_seed(seed % 2**64)
-    shape = (geo["nc"], 1, geo["nro"], geo["npe1"])
+    if geo["adjoint"]:
+        shape = (geo["nc"], 1, geo["nro"], geo["npe1"])
+    else:
+        # the reversed `.ra` dims, C order: viewed transposed below
+        shape = (geo["nz"], geo["n"], geo["n"], 1, geo["nc"])
     x = torch.randn(shape, generator=g, device=device, dtype=torch.complex64)
     host = np.empty(shape, np.complex64)
     torch.from_numpy(host).copy_(x)
-    return host
+    return host if geo["adjoint"] else host.T
 
 
 class CheckPlan:
