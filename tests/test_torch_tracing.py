@@ -136,3 +136,41 @@ def test_benchmark_readers_match_recorded_spans():
     assert {"tron.relayout", "tron.upload", "tron.readback", "tron.frame",
             "tron.grid_radial2d"} <= names
     assert names <= set(tracing.SPANS)
+
+
+CGNR = ("tron.cgnr", "tron.cgnr_rhs", "tron.cgnr_iter")
+
+
+def _cgnr_recon(niter: int):
+    indata, cfg = _input(1), _cfg(niter=niter)
+    return lambda: recon.recon_radial2d(indata, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("niter", [0, 10])
+def test_cgnr_recon_records_its_solver_spans(niter):
+    """A CGNR recon opens, inside each `tron.frame`, one `tron.cgnr` that
+    holds its `tron.cgnr_rhs` and then ``niter`` `tron.cgnr_iter` spans, in
+    that order and apart; the direct adjoint (niter 0) opens none of them."""
+    out, spans = _profiled(_cgnr_recon(niter))
+    assert out.shape == (NZ, 1, NRO // 2, NRO // 2)
+    by = {name: [(s, e) for s, e, n in spans if n == name] for name in tracing.SPANS}
+    if niter == 0:
+        assert not any(by[n] for n in CGNR)
+        return
+    assert [len(by[n]) for n in CGNR] == [NZ, NZ, NZ * niter]
+    for z, ((fs, fe), (cs, ce)) in enumerate(zip(by["tron.frame"], by["tron.cgnr"])):
+        assert fs <= cs and ce <= fe
+        steps = [by["tron.cgnr_rhs"][z]] + by["tron.cgnr_iter"][z * niter:(z + 1) * niter]
+        assert cs <= steps[0][0] and steps[-1][1] <= ce
+        assert all(a[1] <= b[0] for a, b in zip(steps, steps[1:])), steps
+
+
+def test_cgnr_spans_off_change_no_bit():
+    """With no profiler the solver's spans enter no record_function, and a
+    CGNR recon's images are bitwise those of a profiled run."""
+    run = _cgnr_recon(10)
+    want, spans = _profiled(run)
+    assert {n for _, _, n in spans} >= set(CGNR)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
+        np.testing.assert_array_equal(run(), want)

@@ -16,7 +16,11 @@ operator modes, each a true adjoint pair or its normal operator:
 
 The loop stops where the JAX package's `lax.while_loop` stops
 (`rs > rtol^2 <b, b>` and k < niter); its stop test reads one device
-scalar on the host, one synchronisation per iteration.
+scalar on the host, one synchronisation per iteration.  Under a profiler a
+solve is the span ``tron.cgnr``, its right side A^H W b ``tron.cgnr_rhs``
+and each iteration, its stop test first, ``tron.cgnr_iter`` (a solve that
+stops early opens one more, which holds only the test); ``CGNR_COUNTS``
+counts the solves and the iterations they ran.
 
 Across ranks (`parallel/`): with coils sharded the three inner products of an
 iteration are summed over each axis of ``reduce_axes``; with spokes sharded
@@ -38,6 +42,15 @@ from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.nufft import nufft_adjoint, nufft_adjoint_exact, nufft_forward, sdc_weights
 from tron_tpu_torch.ops.degrid import lattice_radii
 from tron_tpu_torch.parallel.distributed import MeshAxis, psum
+from tron_tpu_torch.tracing import span
+
+# solves run and iterations they took, so a caller can see an early stop
+CGNR_COUNTS = {"solves": 0, "iterations": 0}
+
+
+def reset_cgnr_counts() -> None:
+    for k in CGNR_COUNTS:
+        CGNR_COUNTS[k] = 0
 
 
 def _weights(
@@ -249,23 +262,30 @@ def cgnr_radial2d(
             v = psum(v, ax)
         return v
 
-    b = AHW(data)
-    thresh = rtol * rtol * inner(b, b)
-    x = torch.zeros_like(b)
-    r = b
-    p = b
-    rs = inner(r, r)
-    k = 0
-    while k < niter and bool(rs > thresh):
-        Ap = normal(p)
-        alpha = rs / torch.clamp(inner(p, Ap), min=1e-30)
-        x = x + alpha.to(x.dtype) * p
-        r = r - alpha.to(r.dtype) * Ap
-        rs_new = inner(r, r)
-        beta = rs_new / torch.clamp(rs, min=1e-30)
-        p = r + beta.to(p.dtype) * p
-        rs = rs_new
-        k += 1
+    with span("tron.cgnr"):
+        with span("tron.cgnr_rhs"):
+            b = AHW(data)
+        thresh = rtol * rtol * inner(b, b)
+        x = torch.zeros_like(b)
+        r = b
+        p = b
+        rs = inner(r, r)
+        k = 0
+        while k < niter:
+            with span("tron.cgnr_iter"):
+                if not bool(rs > thresh):
+                    break
+                Ap = normal(p)
+                alpha = rs / torch.clamp(inner(p, Ap), min=1e-30)
+                x = x + alpha.to(x.dtype) * p
+                r = r - alpha.to(r.dtype) * Ap
+                rs_new = inner(r, r)
+                beta = rs_new / torch.clamp(rs, min=1e-30)
+                p = r + beta.to(p.dtype) * p
+                rs = rs_new
+            k += 1
+    CGNR_COUNTS["solves"] += 1
+    CGNR_COUNTS["iterations"] += k
     return x
 
 

@@ -18,6 +18,10 @@ the port records:
   graph (`recon.recon_frames`, once per geometry);
 - ``tron.readback``: the images' copy to the host, the queue's drain
   included;
+- ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
+  its ``tron.frame``; ``tron.cgnr_rhs``: its right side A^H W d;
+  ``tron.cgnr_iter``: one iteration, its stop test's read of the residual
+  on the host included;
 - ``tron.<kernel>`` for each gridding kernel (`ops/grid_cuda.KERNELS`):
   one gridding wrapper call, routed to that kernel or, on the CPU, to its
   plain version;
@@ -38,6 +42,9 @@ SPANS = (
     "tron.frame",
     "tron.frame_graph",
     "tron.readback",
+    "tron.cgnr",
+    "tron.cgnr_rhs",
+    "tron.cgnr_iter",
     "tron.grid_radial2d",
     "tron.grid_radial2d_batched",
     "tron.grid_seg_radial2d",
