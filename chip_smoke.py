@@ -1006,8 +1006,8 @@ def main() -> int:
     nzt = min(32, NZ)
     dcg = dfull[:, : work + (nzt - 1) * SLIDE]
     s = timed(lambda: recon_frames(dcg, ccfg, work, SLIDE, nzt), 1)
-    log("timing2", f"CGNR -i {NITER}: {1e3 * s / nzt:.3f} ms per frame ({nzt} frames, host "
-        f"stop test each iteration) on {card}")
+    log("timing2", f"CGNR -i {NITER}: {1e3 * s / nzt:.3f} ms per frame ({nzt} frames, one "
+        f"replay of the iteration's CUDA graph an iteration) on {card}")
 
     # -- 16 seg: the segmented gridding kernel (windowed=False, B4) ----------
     from tron_tpu_torch.config import KernelTuning

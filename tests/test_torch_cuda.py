@@ -739,3 +739,172 @@ def test_frame_graph_under_the_profiler(dev):
     contract = sum("grid_tile_contract_kernel" in n for n in kernels)
     assert contract == grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 6
     assert torch.equal(got, _eager_chain(d, cfg, 51, 21, 6, 0))
+
+
+# -- the CGNR iteration's CUDA graph ---------------------------------------------
+
+
+def _fresh_cgnr():
+    from tron_tpu_torch import solver
+
+    solver._graphs.clear()
+    solver.reset_cgnr_counts()
+    solver.reset_cgnr_graph_counts()
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
+    return solver
+
+
+def _cgnr_case(dev, shape, seed, matmul_dtype="float32", **kw):
+    """(cfg, data (nc, npe, nro) on the card, two frames' golden angles)."""
+    from tron_tpu_torch.config import ReconConfig
+
+    npe = shape[1]
+    cfg = ReconConfig(golden_angle=True, matmul_dtype=matmul_dtype, **kw)
+    d = torch.from_numpy(_host_complex(seed, shape)).to(dev)
+    return cfg, d, [spoke_angles(npe, "golden", 19000 + 21 * z, device=dev) for z in (0, 1)]
+
+
+def _eager_cgnr(solver, d, ang, cfg, **kw):
+    """The eager loop on the card: a coil axis of one rank sums nothing, so
+    its solve is the unsharded one's arithmetic with a host stop test."""
+    from tron_tpu_torch.parallel.distributed import MeshAxis
+
+    return solver.cgnr_radial2d(d, ang, cfg, reduce_axes=(MeshAxis("coil"),), **kw)
+
+
+def _counters():
+    return grid_cuda.LAUNCH_COUNTS["grid_radial2d"], degrid_cuda.LAUNCHES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operators,shape,matmul_dtype,backend", [
+    ("pair", (3, 51, 128), "float32", "auto"),
+    ("toeplitz", (3, 51, 128), "float32", "auto"),
+    ("pair", (3, 51, 128), "float32", "jnp"),
+    ("pair", (6, 204, 512), "bfloat16", "auto"),
+    ("toeplitz", (6, 204, 512), "bfloat16", "auto"),
+])
+def test_cgnr_graph_is_the_eager_loop(dev, operators, shape, matmul_dtype, backend):
+    """A solve on the card captures one CG step once per geometry and
+    replays it niter times: bitwise the eager loop, for two frames' angles
+    through one graph, at a small shape and at whole-body widths (6 coils,
+    204 spokes, 512 readouts, bfloat16), with the kernel pair, the Toeplitz
+    normal operator and the plain operators (backend "jnp").  The second
+    solve captures nothing; in both the gridding and degridding counters
+    grow as the eager solve's do (the first runs its first iteration
+    eagerly, then captures, launching nothing more)."""
+    solver = _fresh_cgnr()
+    cfg, d, (a0, a1) = _cgnr_case(dev, shape, 30, matmul_dtype, backend=backend)
+    got0 = solver.cgnr_radial2d(d, a0, cfg, niter=10, operators=operators)
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 1, "eager": 0}
+    first = _counters()
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
+    got1 = solver.cgnr_radial2d(d, a1, cfg, niter=10, operators=operators)
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 0}
+    graphed = _counters()
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
+    want1 = _eager_cgnr(solver, d, a1, cfg, niter=10, operators=operators)
+    assert _counters() == graphed == first
+    want0 = _eager_cgnr(solver, d, a0, cfg, niter=10, operators=operators)
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 2}
+    assert solver.CGNR_COUNTS == {"solves": 4, "iterations": 40}
+    assert torch.isfinite(torch.view_as_real(want0)).all() and not torch.equal(want0, want1)
+    assert torch.equal(got0, want0) and torch.equal(got1, want1)
+    if backend == "auto":
+        kernels = (11, 10) if operators == "pair" else (2, 0)  # + the multiplier's B1
+        assert graphed == kernels
+
+
+@pytest.mark.gpu
+def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
+    """With an rtol that the residual passes after k < niter iterations the
+    graphed solve is bitwise the eager early stop (the later replays change
+    no bit) and each adds k to CGNR_COUNTS["iterations"]."""
+    solver = _fresh_cgnr()
+    cfg, d, (a0, _) = _cgnr_case(dev, (3, 51, 128), 31)
+    nc, npe, nro = d.shape
+    w = solver._weights(cfg, nro, npe, dev).to(d.dtype)
+    AHW, normal = solver._operators(a0, cfg, nro, (nc, nro // 2, nro // 2), w, "pair")
+    b = AHW(d)
+    rs = solver._inner(b, b)
+    bb, hist = float(rs), []
+    x, r, p, never = torch.zeros_like(b), b, b.clone(), torch.zeros_like(rs)
+    for _ in range(10):
+        solver._cg_step(x, r, p, rs, never, normal, solver._inner)
+        hist.append(float(rs))
+    k = 4
+    assert hist[k - 1] < 0.9 * hist[k - 2]
+    rtol = ((hist[k - 1] * hist[k - 2]) ** 0.5 / bb) ** 0.5
+    want = _eager_cgnr(solver, d, a0, cfg, niter=10, rtol=rtol)
+    assert solver.CGNR_COUNTS["iterations"] == k
+    got = solver.cgnr_radial2d(d, a0, cfg, niter=10, rtol=rtol)
+    assert solver.CGNR_COUNTS == {"solves": 2, "iterations": 2 * k}
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 1, "eager": 1}
+    assert torch.equal(got, want)
+    assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=k))
+
+
+@pytest.mark.gpu
+def test_cgnr_graph_one_per_geometry(dev):
+    """Another spoke count is another geometry: a second graph; the first
+    stays cached and replays without a capture."""
+    solver = _fresh_cgnr()
+    for npe, captured in ((51, 1), (60, 2), (51, 2)):
+        cfg, d, (a0, _) = _cgnr_case(dev, (2, npe, 128), 32)
+        got = solver.cgnr_radial2d(d, a0, cfg, niter=3)
+        assert solver.CGNR_GRAPH_COUNTS["captured"] == captured
+        assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=3))
+    assert len(solver._graphs) == 2
+
+
+@pytest.mark.gpu
+def test_cgnr_graph_under_the_profiler(dev):
+    """Each `tron.cgnr_iter` of a graphed solve holds one graph launch and
+    no other launch; the B1 and B3 kernels in the trace are as many as the
+    counters say, and the solve's bits are the eager loop's."""
+    solver = _fresh_cgnr()
+    cfg, d, (a0, a1) = _cgnr_case(dev, (3, 51, 128), 33)
+    solver.cgnr_radial2d(d, a0, cfg, niter=5)
+    grid_cuda.reset_launches()
+    degrid_cuda.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = solver.cgnr_radial2d(d, a1, cfg, niter=5)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in events
+            if e.device_type() != cuda]
+    kernels = [e.name() for e in events if e.device_type() == cuda]
+    iters = [(s, t) for s, t, n in host if n == "tron.cgnr_iter"]
+    launch = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+    assert len(iters) == 5
+    for s, t in iters:
+        inside = [n for u, _, n in host if s <= u < t]
+        assert inside.count("cudaGraphLaunch") == 1
+        assert not any(n in launch for n in inside)
+    assert sum("grid_tile_contract_kernel" in n for n in kernels) == _counters()[0] == 6
+    assert sum("degrid_radial2d_kernel" in n for n in kernels) == _counters()[1] == 5
+    assert torch.equal(got, _eager_cgnr(solver, d, a1, cfg, niter=5))
+
+
+@pytest.mark.gpu
+def test_sharded_cgnr_captures_nothing(dev):
+    """A coil-sharded and a spoke-sharded solve (axes of one rank here) keep
+    the eager loop, and give the graphed solve's bits."""
+    from tron_tpu_torch.parallel.distributed import MeshAxis
+
+    solver = _fresh_cgnr()
+    cfg, d, (a0, _) = _cgnr_case(dev, (3, 51, 128), 34)
+    npe = d.shape[1]
+    coil = solver.cgnr_radial2d(d, a0, cfg, niter=4, reduce_axes=(MeshAxis("coil"),))
+    spoke = solver.cgnr_radial2d(d, a0, cfg, niter=4, spoke_axis=MeshAxis("spoke"),
+                                 npe_total=npe, sample_mask=torch.ones(npe, device=dev))
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 0, "replayed": 0, "eager": 2}
+    assert not solver._graphs
+    got = solver.cgnr_radial2d(d, a0, cfg, niter=4)
+    assert solver.CGNR_GRAPH_COUNTS["captured"] == 1
+    assert torch.equal(coil, got) and torch.equal(spoke, got)

@@ -5,6 +5,7 @@ handed to both packages.  On the CPU the "pair" mode runs the kernels'
 plain versions.
 """
 
+import collections
 import dataclasses
 
 import jax.numpy as jnp
@@ -279,3 +280,91 @@ def test_phantom_and_metrics_copies_match_jax():
     for f in ("rmse", "nrmse", "nmse", "lmse", "ssim"):
         assert getattr(metrics, f)(a, b) == getattr(jmetrics, f)(a, b)
     np.testing.assert_array_equal(metrics.lmsediff(a, b), jmetrics.lmsediff(a, b))
+
+
+def _step_case(seed: int):
+    """A pair-mode CG state on the CPU after one step: (x, r, p, rs, normal)."""
+    _, cfg, _, ang, data = _problem(24, 16)
+    w = solver._weights(cfg, 48, 16, "cpu").to(torch.complex64)
+    AHW, normal = solver._operators(_t(ang), cfg, 48, (24, 24), w, "pair")
+    b = AHW(_t(data))
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b.shape, generator=g, dtype=torch.complex64)
+    p = b + 0.1 * torch.randn(b.shape, generator=g, dtype=torch.complex64)
+    return x, b.clone(), p, solver._inner(b, b), normal
+
+
+def test_cg_step_while_live_is_the_cg_formula():
+    """Where rs > thresh the shared step gives the CG formula's bits (the
+    loop of the solver before its stop test moved to the device)."""
+    x, r, p, rs, normal = _step_case(1)
+    Ap = normal(p)
+    alpha = rs / torch.clamp(torch.sum(torch.conj(p) * Ap).real, min=1e-30)
+    want_x = x + alpha.to(x.dtype) * p
+    want_r = r - alpha.to(r.dtype) * Ap
+    want_rs = torch.sum(torch.conj(want_r) * want_r).real
+    beta = want_rs / torch.clamp(rs, min=1e-30)
+    want_p = want_r + beta.to(p.dtype) * p
+    live = solver._cg_step(x, r, p, rs, torch.zeros(()), normal, solver._inner)
+    assert live.dtype == torch.bool and bool(live)
+    for got, want in ((x, want_x), (r, want_r), (p, want_p), (rs, want_rs)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("margin", [0.0, 1.0])
+def test_cg_step_past_convergence_changes_no_bit(margin):
+    """Where rs <= thresh (equal, or below) the shared step leaves x, r, p
+    and rs bitwise as they were, in place, and counts no iteration."""
+    x, r, p, rs, normal = _step_case(2)
+    thresh = rs + margin
+    before = [t.clone() for t in (x, r, p, rs)]
+    ptrs = [t.data_ptr() for t in (x, r, p, rs)]
+    count = torch.zeros((), dtype=torch.int64)
+    count += solver._cg_step(x, r, p, rs, thresh, normal, solver._inner)
+    assert int(count) == 0
+    assert [t.data_ptr() for t in (x, r, p, rs)] == ptrs
+    for got, want in zip((x, r, p, rs), before):
+        assert torch.equal(got, want)
+
+
+def test_cpu_solve_captures_nothing():
+    """On the CPU every mode runs the eager loop: no graph is made, and the
+    counts see each solve and its iterations."""
+    _, cfg, _, ang, data = _problem(24, 16)
+    solver.reset_cgnr_counts()
+    solver.reset_cgnr_graph_counts()
+    for operators in ("auto", "pair", "transpose", "toeplitz"):
+        solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=3, operators=operators)
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 0, "replayed": 0, "eager": 4}
+    assert solver.CGNR_COUNTS == {"solves": 4, "iterations": 12}
+    assert not solver._graphs
+
+
+def test_cgnr_counts_fold_in_the_graphs_iterations(monkeypatch):
+    """CGNR_COUNTS["iterations"] adds what each cached graph counted since
+    it was last read, also for a graph dropped from the cache; a reset
+    discards what was counted so far."""
+
+    class Counted:
+        def __init__(self):
+            self.pending = 0
+
+        def take_iterations(self):
+            n, self.pending = self.pending, 0
+            return n
+
+    graphs = {k: Counted() for k in range(solver._GRAPHS_KEPT)}
+    monkeypatch.setattr(solver, "_graphs", collections.OrderedDict(graphs))
+    solver.reset_cgnr_counts()
+    graphs[0].pending, graphs[1].pending = 7, 3
+    solver.CGNR_COUNTS.add("solves", 2)
+    assert solver.CGNR_COUNTS == {"solves": 2, "iterations": 10}
+    assert dict(solver.CGNR_COUNTS) == {"solves": 2, "iterations": 10}
+    graphs[0].pending = 5
+    _, cfg, _, ang, data = _problem(24, 16)
+    solver._graph_for(_t(data), _t(ang), cfg, None, False)  # a new key drops the oldest
+    assert 0 not in solver._graphs and len(solver._graphs) == solver._GRAPHS_KEPT
+    assert solver.CGNR_COUNTS["iterations"] == 15
+    graphs[2].pending = 4
+    solver.reset_cgnr_counts()
+    assert solver.CGNR_COUNTS == {"solves": 0, "iterations": 0}

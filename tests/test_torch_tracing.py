@@ -174,3 +174,10 @@ def test_cgnr_spans_off_change_no_bit():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
         np.testing.assert_array_equal(run(), want)
+
+
+def test_cgnr_graph_span_is_listed():
+    """The capture of the CGNR step is a span of its own, after the
+    iteration's."""
+    i = tracing.SPANS.index("tron.cgnr_iter")
+    assert tracing.SPANS[i + 1] == "tron.cgnr_graph"

@@ -15,12 +15,34 @@ operator modes, each a true adjoint pair or its normal operator:
   * "toeplitz": the normal operator as a Toeplitz-embedded FFT convolution.
 
 The loop stops where the JAX package's `lax.while_loop` stops
-(`rs > rtol^2 <b, b>` and k < niter); its stop test reads one device
-scalar on the host, one synchronisation per iteration.  Under a profiler a
-solve is the span ``tron.cgnr``, its right side A^H W b ``tron.cgnr_rhs``
-and each iteration, its stop test first, ``tron.cgnr_iter`` (a solve that
-stops early opens one more, which holds only the test); ``CGNR_COUNTS``
-counts the solves and the iterations they ran.
+(`rs > rtol^2 <b, b>` and k < niter).  One iteration is one call of
+``_cg_step``, whose stop test runs on the device: where ``rs > thresh`` is
+false it leaves x, r, p and rs as they are, bit for bit, so a solve that
+has converged stays converged; where it is true it steps by the CG formula.
+
+On the card, with the pair's operators (or the Toeplitz normal operator on
+the pair's right side) and no mesh axis, that step is captured once per
+geometry as a CUDA graph (`_CGGraph`) on static vectors and replayed
+``niter`` times a solve, with no read of the device on the host; the cache
+key holds all the captured chain depends on.  Elsewhere (the CPU, the
+"transpose" mode, a coil- or spoke-sharded solve) the eager loop reads the
+residual on the host before each step and leaves the loop at the first
+false, one synchronisation per iteration.
+
+Under a profiler a solve is the span ``tron.cgnr``, its right side A^H W b
+``tron.cgnr_rhs`` and each iteration ``tron.cgnr_iter``: in the eager loop
+the stop test's host read and the step (a solve that stops early opens one
+more, which holds only the test); in a graphed solve one replay of the
+graph (a geometry's first iteration: the step run eagerly, before the
+capture), so such a solve always opens ``niter`` of them, those past
+convergence running a step that changes nothing.  The capture, once per
+geometry after its first solve's first iteration, is ``tron.cgnr_graph``.
+``CGNR_COUNTS`` counts the solves and the iterations they ran (a graphed
+solve's on the device, added in when the counts are read);
+``CGNR_GRAPH_COUNTS`` the graphs captured, the solves replayed from one and
+the solves run eagerly.  A replay adds the gridding and degridding launches
+it captured to the kernels' launch counters, so they count what reached
+the card, as the eager loop's do.
 
 Across ranks (`parallel/`): with coils sharded the three inner products of an
 iteration are summed over each axis of ``reduce_axes``; with spokes sharded
@@ -33,24 +55,76 @@ every rank of the group, so all ranks leave the loop together.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import warnings
+from collections.abc import MutableMapping
 
 import torch
 
 from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.nufft import nufft_adjoint, nufft_adjoint_exact, nufft_forward, sdc_weights
+from tron_tpu_torch.ops import degrid_cuda, grid_cuda
 from tron_tpu_torch.ops.degrid import lattice_radii
 from tron_tpu_torch.parallel.distributed import MeshAxis, psum
 from tron_tpu_torch.tracing import span
 
-# solves run and iterations they took, so a caller can see an early stop
-CGNR_COUNTS = {"solves": 0, "iterations": 0}
+CGNR_GRAPH_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
+# captured iterations kept, most recently used last; each holds its
+# geometry's intermediates (grids, samples, the gridder's workspace)
+_GRAPHS_KEPT = 4
+_graphs: collections.OrderedDict = collections.OrderedDict()
+
+
+class _Counts(MutableMapping):
+    """``{"solves": ..., "iterations": ...}``, so a caller can see an early
+    stop.  A graphed solve counts its iterations on the device; reading
+    "iterations" adds in what each cached graph counted since the last read
+    (one device read a graph), so a solve itself never reads it."""
+
+    def __init__(self):
+        self._n = {"solves": 0, "iterations": 0}
+
+    def fold(self) -> None:
+        for g in _graphs.values():
+            self._n["iterations"] += g.take_iterations()
+
+    def add(self, key: str, n: int) -> None:
+        self._n[key] += n
+
+    def __getitem__(self, key):
+        if key == "iterations":
+            self.fold()
+        return self._n[key]
+
+    def __setitem__(self, key, value):
+        self.fold()
+        self._n[key] = value
+
+    def __delitem__(self, key):
+        raise TypeError("the CGNR counts keep their keys")
+
+    def __iter__(self):
+        return iter(self._n)
+
+    def __len__(self):
+        return len(self._n)
+
+    def __repr__(self):
+        return repr(dict(self.items()))
+
+
+CGNR_COUNTS = _Counts()
 
 
 def reset_cgnr_counts() -> None:
     for k in CGNR_COUNTS:
         CGNR_COUNTS[k] = 0
+
+
+def reset_cgnr_graph_counts() -> None:
+    for k in CGNR_GRAPH_COUNTS:
+        CGNR_GRAPH_COUNTS[k] = 0
 
 
 def _weights(
@@ -154,6 +228,19 @@ def _transpose_adjoint(fwd, img_shape, dtype, device):
     return lambda z: vjp(z)[0]
 
 
+def _resolve(operators: str, cfg: ReconConfig, device) -> tuple[str, bool]:
+    """``operators`` of cgnr_radial2d as (the adjoint pair's mode, "pair" or
+    "transpose"; whether the normal operator is the Toeplitz one): "auto"
+    is "toeplitz" under cfg.toeplitz, and "auto" and "toeplitz" take the
+    kernel pair on a CUDA device, the autograd transpose elsewhere."""
+    if operators == "auto" and cfg.toeplitz:
+        operators = "toeplitz"
+    toeplitz = operators == "toeplitz"
+    if operators in ("auto", "toeplitz"):
+        operators = "pair" if device.type == "cuda" else "transpose"
+    return operators, toeplitz
+
+
 def _operators(
     angles: torch.Tensor,
     cfg: ReconConfig,
@@ -172,11 +259,7 @@ def _operators(
     the axis (with "toeplitz": the multiplier, once)."""
     npe = int(angles.shape[0])
     nxos = int((nro // 2) * cfg.gridos)
-    if operators == "auto" and cfg.toeplitz:
-        operators = "toeplitz"
-    toeplitz = operators == "toeplitz"
-    if operators in ("auto", "toeplitz"):
-        operators = "pair" if w.device.type == "cuda" else "transpose"
+    operators, toeplitz = _resolve(operators, cfg, w.device)
 
     if operators == "pair":
         # the clip-mode forward is the exact transpose of the gridding
@@ -218,6 +301,144 @@ def _operators(
     return AHW, lambda x: AHW(fwd(x))
 
 
+def _inner(a: torch.Tensor, bb: torch.Tensor, reduce_axes: tuple = ()) -> torch.Tensor:
+    """Re <a, bb>, summed over each mesh axis of ``reduce_axes``."""
+    v = torch.sum(torch.conj(a) * bb).real
+    for ax in reduce_axes:
+        v = psum(v, ax)
+    return v
+
+
+def _cg_step(x, r, p, rs, thresh, normal, inner) -> torch.Tensor:
+    """One CG iteration on the state (x, r, p, rs) in place, with the stop
+    test on the device; returns it, ``rs > thresh``, as a device bool.
+    Where it is true the state takes the CG formula's values; where it is
+    false ``torch.where`` keeps every bit of the state, so a converged solve
+    stays converged.  Everything is computed from the state before any of it
+    is written."""
+    live = rs > thresh
+    Ap = normal(p)
+    alpha = rs / torch.clamp(inner(p, Ap), min=1e-30)
+    x_new = x + alpha.to(x.dtype) * p
+    r_new = r - alpha.to(r.dtype) * Ap
+    rs_new = inner(r_new, r_new)
+    beta = rs_new / torch.clamp(rs, min=1e-30)
+    p_new = r_new + beta.to(p.dtype) * p
+    for old, new in ((x, x_new), (r, r_new), (p, p_new), (rs, rs_new)):
+        torch.where(live, new, old, out=old)
+    return live
+
+
+class _CGGraph:
+    """One geometry's CG iteration captured as a CUDA graph.
+
+    The pair's operators are built once on a static angle buffer and weight
+    row (with ``toeplitz``, the normal operator reads a static multiplier
+    that each solve recomputes from its angles).  Each solve runs its right
+    side eagerly and sets the static x, r, p, rs and thresh from it.  The
+    geometry's first solve runs its first iteration eagerly, which warms
+    cuFFT's plans, the kernels and their cached tables, so the capture that
+    follows copies nothing from the host; the capture is one ``_cg_step``
+    on the static state, which also counts the live iterations on the
+    device, and every later iteration is a replay.  The capture launches
+    nothing, so the kernels' launch counts are taken back after it and each
+    replay adds what the step launches.  The capture is thread-local, as
+    `recon._FrameGraph`'s; a failed capture raises."""
+
+    def __init__(self, data, angles, cfg, npe_total, toeplitz):
+        npe, nro = data.shape[-2:]
+        n = nro // 2
+        self.cfg, self.nro, self.npe_total = cfg, nro, npe_total
+        self.angles = angles.clone()
+        w = _weights(cfg, nro, npe_total or npe, data.device).to(data.dtype)
+        img_shape = tuple(data.shape[:-2]) + (n, n)
+        self.AHW, self.normal = _operators(self.angles, cfg, nro, img_shape, w, "pair")
+        self.mult = None
+        if toeplitz:
+            self.mult = torch.zeros((2 * n, 2 * n), dtype=torch.complex64, device=data.device)
+            self.normal = lambda x: toeplitz_apply(x, self.mult)
+        self.graph = self.state = None
+        self.folded = 0
+
+    def _capture(self) -> None:
+        grid_before, degrid_before = dict(grid_cuda.LAUNCH_COUNTS), degrid_cuda.LAUNCHES
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.device(self.count.device):
+                stream = torch.cuda.Stream(self.count.device)
+                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                    self.count.add_(_cg_step(*self.state))
+        finally:
+            self.grid_launches = {k: grid_cuda.LAUNCH_COUNTS[k] - v
+                                  for k, v in grid_before.items()}
+            self.degrid_launches = degrid_cuda.LAUNCHES - degrid_before
+            grid_cuda.LAUNCH_COUNTS.update(grid_before)
+            degrid_cuda.LAUNCHES = degrid_before
+        self.graph = graph
+
+    def solve(self, data, angles, rtol: float, niter: int) -> torch.Tensor:
+        self.angles.copy_(angles)
+        if self.mult is not None:
+            self.mult.copy_(toeplitz_fourier_kernel(self.angles, self.cfg, self.nro,
+                                                    npe_total=self.npe_total))
+        with span("tron.cgnr"):
+            with span("tron.cgnr_rhs"):
+                b = self.AHW(data)
+            bb = _inner(b, b)
+            if self.state is None:
+                vecs = tuple(torch.zeros_like(b) for _ in range(3))
+                scalars = (torch.zeros_like(bb), torch.zeros_like(bb))
+                self.state = (*vecs, *scalars, self.normal, _inner)
+                self.count = torch.zeros((), dtype=torch.int64, device=b.device)
+            x, r, p, rs, thresh = self.state[:5]
+            thresh.copy_(rtol * rtol * bb)
+            x.zero_()
+            r.copy_(b)
+            p.copy_(b)
+            rs.copy_(bb)
+            done = 0
+            if self.graph is None:
+                with span("tron.cgnr_iter"):
+                    self.count.add_(_cg_step(*self.state))
+                with span("tron.cgnr_graph"):
+                    self._capture()
+                CGNR_GRAPH_COUNTS["captured"] += 1
+                done = 1
+            for _ in range(done, niter):
+                with span("tron.cgnr_iter"):
+                    self.graph.replay()
+                    for k, v in self.grid_launches.items():
+                        grid_cuda.LAUNCH_COUNTS[k] += v
+                    degrid_cuda.LAUNCHES += self.degrid_launches
+            # the static x is overwritten by the next solve
+            return x.clone()
+
+    def take_iterations(self) -> int:
+        """Live iterations run since the last call (a device read)."""
+        if self.state is None:
+            return 0
+        total = int(self.count)
+        n, self.folded = total - self.folded, total
+        return n
+
+
+def _graph_for(data, angles, cfg, npe_total, toeplitz) -> _CGGraph:
+    """The cached graph of this geometry, made on a miss (its capture waits
+    for its first solve).  The key holds all the captured step depends on:
+    the data's device, shape and dtype, the angles' dtype, the
+    configuration, the kernel tuning it resolves to, the operator mode and
+    the spoke count the weights come from."""
+    key = (data.device, tuple(data.shape), data.dtype, angles.dtype, cfg, cfg.kernel_tuning(),
+           toeplitz, npe_total)
+    graph = _graphs.pop(key, None)
+    if graph is None:
+        graph = _CGGraph(data, angles, cfg, npe_total, toeplitz)
+    _graphs[key] = graph
+    while len(_graphs) > _GRAPHS_KEPT:
+        CGNR_COUNTS.add("iterations", _graphs.popitem(last=False)[1].take_iterations())
+    return graph
+
+
 def cgnr_radial2d(
     data: torch.Tensor,
     angles: torch.Tensor,
@@ -243,9 +464,20 @@ def cgnr_radial2d(
     alpha and beta.  ``spoke_axis``, ``npe_total``, ``sample_mask``:
     spoke-sharded CGNR (`parallel/spoke.py`): ``data`` and ``angles`` hold
     one shard's spokes, the weights come from the frame's ``npe_total``, and
-    ``sample_mask`` (0/1 per local spoke) weights the shard's padding out."""
+    ``sample_mask`` (0/1 per local spoke) weights the shard's padding out.
+
+    On a CUDA device with the pair's adjoint and no mesh axis, the
+    iterations replay a CUDA graph (the module's docstring)."""
     _check_axes(reduce_axes, spoke_axis)
     niter = cfg.niter if niter is None else niter
+    mode, toeplitz = _resolve(operators, cfg, data.device)
+    if (data.is_cuda and mode == "pair" and niter > 0 and not reduce_axes
+            and spoke_axis is None and sample_mask is None):
+        x = _graph_for(data, angles, cfg, npe_total, toeplitz).solve(data, angles, rtol, niter)
+        CGNR_COUNTS.add("solves", 1)
+        CGNR_GRAPH_COUNTS["replayed"] += 1
+        return x
+
     npe, nro = data.shape[-2:]
     n = nro // 2
     img_shape = tuple(data.shape[:-2]) + (n, n)
@@ -257,35 +489,24 @@ def cgnr_radial2d(
     )
 
     def inner(a, bb):
-        v = torch.sum(torch.conj(a) * bb).real
-        for ax in reduce_axes:
-            v = psum(v, ax)
-        return v
+        return _inner(a, bb, reduce_axes)
 
     with span("tron.cgnr"):
         with span("tron.cgnr_rhs"):
             b = AHW(data)
-        thresh = rtol * rtol * inner(b, b)
-        x = torch.zeros_like(b)
-        r = b
-        p = b
-        rs = inner(r, r)
+        rs = inner(b, b)
+        thresh = rtol * rtol * rs
+        x, r, p = torch.zeros_like(b), b, b.clone()
         k = 0
         while k < niter:
             with span("tron.cgnr_iter"):
                 if not bool(rs > thresh):
                     break
-                Ap = normal(p)
-                alpha = rs / torch.clamp(inner(p, Ap), min=1e-30)
-                x = x + alpha.to(x.dtype) * p
-                r = r - alpha.to(r.dtype) * Ap
-                rs_new = inner(r, r)
-                beta = rs_new / torch.clamp(rs, min=1e-30)
-                p = r + beta.to(p.dtype) * p
-                rs = rs_new
+                _cg_step(x, r, p, rs, thresh, normal, inner)
             k += 1
-    CGNR_COUNTS["solves"] += 1
-    CGNR_COUNTS["iterations"] += k
+    CGNR_COUNTS.add("solves", 1)
+    CGNR_COUNTS.add("iterations", k)
+    CGNR_GRAPH_COUNTS["eager"] += 1
     return x
 
 

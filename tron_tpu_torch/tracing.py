@@ -20,8 +20,12 @@ the port records:
   included;
 - ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
   its ``tron.frame``; ``tron.cgnr_rhs``: its right side A^H W d;
-  ``tron.cgnr_iter``: one iteration, its stop test's read of the residual
-  on the host included;
+  ``tron.cgnr_iter``: one iteration: in the eager loop its stop test's read
+  of the residual on the host and its step, in a graphed solve (on the
+  card) one replay of the captured step (a geometry's first iteration: the
+  step run eagerly before the capture), ``niter`` of them a solve whatever
+  the stop test finds; ``tron.cgnr_graph``: the capture of one CG step as
+  a CUDA graph (once per geometry, inside that solve's ``tron.cgnr``);
 - ``tron.<kernel>`` for each gridding kernel (`ops/grid_cuda.KERNELS`):
   one gridding wrapper call, routed to that kernel or, on the CPU, to its
   plain version;
@@ -45,6 +49,7 @@ SPANS = (
     "tron.cgnr",
     "tron.cgnr_rhs",
     "tron.cgnr_iter",
+    "tron.cgnr_graph",
     "tron.grid_radial2d",
     "tron.grid_radial2d_batched",
     "tron.grid_seg_radial2d",
