@@ -575,7 +575,7 @@ def test_sharded_scheduler_at_world_1_is_the_unsharded_one(dev):
 def _fresh_graphs():
     from tron_tpu_torch import recon
 
-    recon._graphs.clear()
+    recon._frame_graphs.entries.clear()
     recon.reset_frame_graph_counts()
     grid_cuda.reset_launches()
     return recon
@@ -645,13 +645,13 @@ def test_frame_graph_one_per_geometry(dev):
         got = recon.recon_frames(d, cfg, work, slide, nz)
         assert recon.FRAME_GRAPH_COUNTS["captured"] == captured
         assert torch.equal(got, _eager_chain(d, cfg, work, slide, nz, 0))
-    assert len(recon._graphs) == 2
+    assert len(recon._frame_graphs.entries) == 2
 
 
-def _eager_frames(frame, window, angles, nz, cfg):
-    from tron_tpu_torch.recon import _map_frames
-
-    return _map_frames(lambda z: frame(window(z), angles[z]), nz)
+def _eager_frames(monkeypatch, recon):
+    """Every frame of the direct scheduler run by its eager call."""
+    orig = recon._map_frames
+    monkeypatch.setattr(recon, "_map_frames", lambda one, nz, then=None: orig(one, nz))
 
 
 @pytest.mark.gpu
@@ -683,7 +683,7 @@ def test_frame_graph_in_the_streamed_and_koosh_recons(dev, tmp_path, monkeypatch
         got = recon_radial2d(d, cfg, device=dev)
     counts = dict(recon.FRAME_GRAPH_COUNTS)
     assert counts["captured"] == 1 and counts["replayed"] > counts["eager"] > 0
-    monkeypatch.setattr(recon, "_graph_frames", _eager_frames)
+    _eager_frames(monkeypatch, recon)
     want = recon_radial2d(d if koosh else d[..., 0], cfg, device=dev)
     assert recon.FRAME_GRAPH_COUNTS["replayed"] == counts["replayed"]
     assert torch.equal(torch.from_numpy(got), torch.from_numpy(want))
@@ -747,7 +747,7 @@ def test_frame_graph_under_the_profiler(dev):
 def _fresh_cgnr():
     from tron_tpu_torch import solver
 
-    solver._graphs.clear()
+    solver._cg_graphs.entries.clear()
     solver.reset_cgnr_counts()
     solver.reset_cgnr_graph_counts()
     grid_cuda.reset_launches()
@@ -810,7 +810,7 @@ def test_cgnr_graph_is_the_eager_loop(dev, operators, shape, matmul_dtype, backe
     assert _counters() == graphed == first
     want0 = _eager_cgnr(solver, d, a0, cfg, niter=10, operators=operators)
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 2}
-    assert solver.CGNR_COUNTS == {"solves": 4, "iterations": 40}
+    assert solver.cgnr_counts() == {"solves": 4, "iterations": 40}
     assert torch.isfinite(torch.view_as_real(want0)).all() and not torch.equal(want0, want1)
     assert torch.equal(got0, want0) and torch.equal(got1, want1)
     if backend == "auto":
@@ -822,7 +822,7 @@ def test_cgnr_graph_is_the_eager_loop(dev, operators, shape, matmul_dtype, backe
 def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
     """With an rtol that the residual passes after k < niter iterations the
     graphed solve is bitwise the eager early stop (the later replays change
-    no bit) and each adds k to CGNR_COUNTS["iterations"]."""
+    no bit) and each adds k to cgnr_counts()["iterations"]."""
     solver = _fresh_cgnr()
     cfg, d, (a0, _) = _cgnr_case(dev, (3, 51, 128), 31)
     nc, npe, nro = d.shape
@@ -839,9 +839,9 @@ def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
     assert hist[k - 1] < 0.9 * hist[k - 2]
     rtol = ((hist[k - 1] * hist[k - 2]) ** 0.5 / bb) ** 0.5
     want = _eager_cgnr(solver, d, a0, cfg, niter=10, rtol=rtol)
-    assert solver.CGNR_COUNTS["iterations"] == k
+    assert solver.cgnr_counts()["iterations"] == k
     got = solver.cgnr_radial2d(d, a0, cfg, niter=10, rtol=rtol)
-    assert solver.CGNR_COUNTS == {"solves": 2, "iterations": 2 * k}
+    assert solver.cgnr_counts() == {"solves": 2, "iterations": 2 * k}
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 1, "eager": 1}
     assert torch.equal(got, want)
     assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=k))
@@ -857,7 +857,7 @@ def test_cgnr_graph_one_per_geometry(dev):
         got = solver.cgnr_radial2d(d, a0, cfg, niter=3)
         assert solver.CGNR_GRAPH_COUNTS["captured"] == captured
         assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=3))
-    assert len(solver._graphs) == 2
+    assert len(solver._cg_graphs.entries) == 2
 
 
 @pytest.mark.gpu
@@ -904,7 +904,7 @@ def test_sharded_cgnr_captures_nothing(dev):
     spoke = solver.cgnr_radial2d(d, a0, cfg, niter=4, spoke_axis=MeshAxis("spoke"),
                                  npe_total=npe, sample_mask=torch.ones(npe, device=dev))
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 0, "replayed": 0, "eager": 2}
-    assert not solver._graphs
+    assert not solver._cg_graphs.entries
     got = solver.cgnr_radial2d(d, a0, cfg, niter=4)
     assert solver.CGNR_GRAPH_COUNTS["captured"] == 1
     assert torch.equal(coil, got) and torch.equal(spoke, got)

@@ -22,7 +22,7 @@ from tron_tpu.config import AngleScheme
 from tron_tpu.config import ReconConfig as JaxConfig
 from tron_tpu.oracle import dtft as jdtft
 from tron_tpu.trajectory import spoke_angles as jangles
-from tron_tpu_torch import metrics, nufft, phantom, solver
+from tron_tpu_torch import graphs, metrics, nufft, phantom, solver
 from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.oracle import dtft
 
@@ -336,35 +336,30 @@ def test_cpu_solve_captures_nothing():
     for operators in ("auto", "pair", "transpose", "toeplitz"):
         solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=3, operators=operators)
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 0, "replayed": 0, "eager": 4}
-    assert solver.CGNR_COUNTS == {"solves": 4, "iterations": 12}
-    assert not solver._graphs
+    assert solver.cgnr_counts() == {"solves": 4, "iterations": 12}
+    assert not solver._cg_graphs.entries
 
 
 def test_cgnr_counts_fold_in_the_graphs_iterations(monkeypatch):
-    """CGNR_COUNTS["iterations"] adds what each cached graph counted since
-    it was last read, also for a graph dropped from the cache; a reset
-    discards what was counted so far."""
-
-    class Counted:
-        def __init__(self):
-            self.pending = 0
-
-        def take_iterations(self):
-            n, self.pending = self.pending, 0
-            return n
-
-    graphs = {k: Counted() for k in range(solver._GRAPHS_KEPT)}
-    monkeypatch.setattr(solver, "_graphs", collections.OrderedDict(graphs))
+    """cgnr_counts()["iterations"] adds the device's count of graphed
+    iterations (the int64 the captured step adds to; a CPU tensor here) to
+    the eager loop's, also once the graphs that counted are dropped from
+    the cache; a reset discards what was counted so far, the device's count
+    zeroed in place (the captured steps hold its address)."""
+    cpu = torch.device("cpu")
+    live = torch.zeros((), dtype=torch.int64)
+    monkeypatch.setattr(solver, "_live", {cpu: live})
+    monkeypatch.setattr(solver._cg_graphs, "entries", collections.OrderedDict())
     solver.reset_cgnr_counts()
-    graphs[0].pending, graphs[1].pending = 7, 3
-    solver.CGNR_COUNTS.add("solves", 2)
-    assert solver.CGNR_COUNTS == {"solves": 2, "iterations": 10}
-    assert dict(solver.CGNR_COUNTS) == {"solves": 2, "iterations": 10}
-    graphs[0].pending = 5
     _, cfg, _, ang, data = _problem(24, 16)
-    solver._graph_for(_t(data), _t(ang), cfg, None, False)  # a new key drops the oldest
-    assert 0 not in solver._graphs and len(solver._graphs) == solver._GRAPHS_KEPT
-    assert solver.CGNR_COUNTS["iterations"] == 15
-    graphs[2].pending = 4
+    solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=3)
+    live += 7
+    assert solver.cgnr_counts() == {"solves": 1, "iterations": 10}
+    live += 5
+    for k in range(graphs.KEPT + 1):  # the fifth geometry drops the first
+        solver._cg_graphs.get(k, lambda: solver._CGGraph(_t(data), _t(ang), cfg, None, False))
+    assert list(solver._cg_graphs.entries) == list(range(1, graphs.KEPT + 1))
+    assert solver.cgnr_counts() == {"solves": 1, "iterations": 15}
     solver.reset_cgnr_counts()
-    assert solver.CGNR_COUNTS == {"solves": 0, "iterations": 0}
+    assert solver.cgnr_counts() == {"solves": 0, "iterations": 0}
+    assert solver._live[cpu] is live and int(live) == 0

@@ -18,8 +18,9 @@ class's values (`ops/degrid.fp32_wrap_edges`, the rule of the plain
 version too).
 
 ``LAUNCHES`` counts kernel launches (one per wrapper call that reached the
-card, two where the wrap edges are recomputed), so a run can show that its
-main path went through the kernel; ``reset_launches()`` zeroes it.
+card, two where the wrap edges are recomputed; a replayed CUDA graph adds
+the calls it captured, `graphs.py`), so a run can show that its main path
+went through the kernel; ``reset_launches()`` zeroes it.
 """
 
 from __future__ import annotations

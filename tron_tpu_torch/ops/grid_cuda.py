@@ -31,7 +31,7 @@ CPU.  A kernel failure is never caught to fall back.
 
 ``LAUNCH_COUNTS`` counts launches per kernel (one per wrapper call that
 reached the card; a replayed CUDA graph adds the calls it captured,
-`recon._FrameGraph`), so a run can show which kernel its main path went
+`graphs.py`), so a run can show which kernel its main path went
 through; ``LAUNCHES`` reads their total and ``reset_launches()`` zeroes
 them.  Under a profiler each wrapper call is one span, ``tron.<kernel>``
 (`tracing.py`), on the card and on the CPU alike.

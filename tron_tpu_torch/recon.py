@@ -6,7 +6,7 @@ recon, in memory and streamed.
 Frames run in order in a Python loop, each written into one preallocated
 output (the JAX package's ``lax.map`` / ``lax.scan``).  On the card the
 direct scheduler's hoisted path replays one CUDA graph a frame: the frame's
-device chain is captured once per geometry (`_FrameGraph`) and each frame
+device chain is captured once per geometry (`graphs.py`) and each frame
 copies its window and angles into the graph's static inputs.  The frame
 schedulers take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when
 the coils they are given are one shard of a mesh's 'coil' axis: the coil
@@ -22,13 +22,13 @@ frames replayed from a graph and its frames run eagerly;
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from tron_tpu_torch import graphs
 from tron_tpu_torch.config import AngleScheme, ReconConfig
 from tron_tpu_torch.kernels.kb import kb_beta
 from tron_tpu_torch.nufft import (
@@ -49,16 +49,9 @@ from tron_tpu_torch.solver import cgnr_radial2d
 from tron_tpu_torch.tracing import span
 from tron_tpu_torch.trajectory import spoke_angle_table, spoke_angles
 
-FRAME_GRAPH_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
-# captured frame chains kept, most recently used last; each holds ~50 MB of
-# the card at whole-body size (B1's workspace, the k-space grid, the FFT's)
-_GRAPHS_KEPT = 4
-_graphs: collections.OrderedDict = collections.OrderedDict()
-
-
-def reset_frame_graph_counts() -> None:
-    for k in FRAME_GRAPH_COUNTS:
-        FRAME_GRAPH_COUNTS[k] = 0
+_frame_graphs = graphs.Cache()
+FRAME_GRAPH_COUNTS = _frame_graphs.counts
+reset_frame_graph_counts = _frame_graphs.reset_counts
 
 
 def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
@@ -106,12 +99,17 @@ def _combine(
     raise ValueError(f"coil_combine must be 'sos', 'walsh' or 'none', got {cfg.coil_combine!r}")
 
 
-def _map_frames(one, nz: int) -> torch.Tensor:
-    """Frames 0..nz-1 in order, written into one preallocated output."""
+def _map_frames(one, nz: int, then=None) -> torch.Tensor:
+    """Frames 0..nz-1 in order, written into one preallocated output.  Frame
+    0 runs ``one`` and sizes the output; with ``then``, frames 1 on run the
+    function that ``then()`` returns after frame 0 (the direct scheduler's
+    replay of its graph)."""
     with span("tron.frame"):
         first = one(0)
         out = first.new_empty((nz,) + tuple(first.shape))
         out[0] = first
+    if then is not None and nz > 1:
+        one = then()
     for z in range(1, nz):
         with span("tron.frame"):
             out[z] = one(z)
@@ -167,12 +165,23 @@ def recon_frames(
         def window(z):
             return planes[z * prof_slide : z * prof_slide + npe1work]
 
-        # a sharded coil axis puts a collective inside the combine
-        if planes.is_cuda and (coil_axis is None or coil_axis.size == 1):
-            return _graph_frames(frame, window, angles, nz, cfg)
-
         def one(z):
             return frame(window(z), angles[z])
+
+        # a sharded coil axis puts a collective inside the combine
+        if planes.is_cuda and (coil_axis is None or coil_axis.size == 1):
+
+            def replay():
+                # after frame 0 has warmed cuFFT's plan and the kernels'
+                # library; the key holds all the chain depends on
+                win = window(0)
+                key = (win.device, tuple(win.shape), win.dtype, cfg, cfg.kernel_tuning())
+                chain = _frame_graphs.get(key, lambda: _capture_frame(frame, win, angles[0]))
+                FRAME_GRAPH_COUNTS["replayed"] += nz - 1
+                return lambda z: chain.replay(window(z), angles[z])
+
+            FRAME_GRAPH_COUNTS["eager"] += 1
+            return _map_frames(one, nz, replay)
 
     else:
 
@@ -185,67 +194,11 @@ def recon_frames(
     return _map_frames(one, nz)
 
 
-class _FrameGraph:
-    """One frame's device chain ``frame(win, ang)`` captured as a CUDA graph
-    on static copies of ``win`` and ``ang``.  A call copies a frame's window
-    and angles into them, replays the graph on the current stream and
-    returns its static output, which the next call overwrites.
-
-    The capture launches nothing on the card, so the gridding kernels'
-    launch counts are taken back after it and each replay adds what the
-    chain launches.  The capture is thread-local: the streamed recon's
-    loader and reader threads copy on their own streams meanwhile.  A failed
-    capture raises."""
-
-    def __init__(self, frame, win: torch.Tensor, ang: torch.Tensor):
-        self.win, self.ang = win.clone(), ang.clone()
-        before = dict(grid_cuda.LAUNCH_COUNTS)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(win.device):
-            stream = torch.cuda.Stream(win.device)
-            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
-                self.out = frame(self.win, self.ang)
-        self.launches = {k: grid_cuda.LAUNCH_COUNTS[k] - n for k, n in before.items()}
-        grid_cuda.LAUNCH_COUNTS.update(before)
-
-    def __call__(self, win: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
-        self.win.copy_(win)
-        self.ang.copy_(ang)
-        self.graph.replay()
-        for k, n in self.launches.items():
-            grid_cuda.LAUNCH_COUNTS[k] += n
-        return self.out
-
-
-def _graph_frames(frame, window, angles: torch.Tensor, nz: int, cfg: ReconConfig) -> torch.Tensor:
-    """``_map_frames`` on the card: frame 0 eagerly (it sizes the output
-    and, on a geometry's first call, warms cuFFT's plan and the kernels'
-    library before the capture), every later frame a replay of the graph
-    cached for this geometry.  The key holds all the chain depends on: the
-    window's device, shape and dtype, the configuration and the kernel
-    tuning it resolves to."""
-    with span("tron.frame"):
-        first = frame(window(0), angles[0])
-        out = first.new_empty((nz,) + tuple(first.shape))
-        out[0] = first
-    FRAME_GRAPH_COUNTS["eager"] += 1
-    if nz == 1:
-        return out
-    win = window(0)
-    key = (win.device, tuple(win.shape), win.dtype, cfg, cfg.kernel_tuning())
-    graph = _graphs.pop(key, None)
-    if graph is None:
-        with span("tron.frame_graph"):
-            graph = _FrameGraph(frame, win, angles[0])
-        FRAME_GRAPH_COUNTS["captured"] += 1
-    _graphs[key] = graph
-    while len(_graphs) > _GRAPHS_KEPT:
-        _graphs.popitem(last=False)
-    for z in range(1, nz):
-        with span("tron.frame"):
-            out[z] = graph(window(z), angles[z])
-    FRAME_GRAPH_COUNTS["replayed"] += nz - 1
-    return out
+def _capture_frame(frame, win: torch.Tensor, ang: torch.Tensor) -> graphs.Chain:
+    with span("tron.frame_graph"):
+        chain = graphs.Chain(frame, win.clone(), ang.clone())
+    FRAME_GRAPH_COUNTS["captured"] += 1
+    return chain
 
 
 def incremental_applicable(cfg: ReconConfig, work: int, slide: int, nz: int) -> bool:

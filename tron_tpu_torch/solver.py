@@ -22,12 +22,12 @@ has converged stays converged; where it is true it steps by the CG formula.
 
 On the card, with the pair's operators (or the Toeplitz normal operator on
 the pair's right side) and no mesh axis, that step is captured once per
-geometry as a CUDA graph (`_CGGraph`) on static vectors and replayed
-``niter`` times a solve, with no read of the device on the host; the cache
-key holds all the captured chain depends on.  Elsewhere (the CPU, the
-"transpose" mode, a coil- or spoke-sharded solve) the eager loop reads the
-residual on the host before each step and leaves the loop at the first
-false, one synchronisation per iteration.
+geometry as a CUDA graph (`_CGGraph`, `graphs.py`) on static vectors and
+replayed ``niter`` times a solve, with no read of the device on the host;
+the cache key holds all the captured chain depends on.  Elsewhere (the
+CPU, the "transpose" mode, a coil- or spoke-sharded solve) the eager loop
+reads the residual on the host before each step and leaves the loop at the
+first false, one synchronisation per iteration.
 
 Under a profiler a solve is the span ``tron.cgnr``, its right side A^H W b
 ``tron.cgnr_rhs`` and each iteration ``tron.cgnr_iter``: in the eager loop
@@ -37,12 +37,10 @@ graph (a geometry's first iteration: the step run eagerly, before the
 capture), so such a solve always opens ``niter`` of them, those past
 convergence running a step that changes nothing.  The capture, once per
 geometry after its first solve's first iteration, is ``tron.cgnr_graph``.
-``CGNR_COUNTS`` counts the solves and the iterations they ran (a graphed
-solve's on the device, added in when the counts are read);
-``CGNR_GRAPH_COUNTS`` the graphs captured, the solves replayed from one and
-the solves run eagerly.  A replay adds the gridding and degridding launches
-it captured to the kernels' launch counters, so they count what reached
-the card, as the eager loop's do.
+``cgnr_counts()`` reads the solves and the iterations they ran (a graphed
+solve's are counted in one int64 on its device, which the captured step
+adds to); ``CGNR_GRAPH_COUNTS`` counts the graphs captured, the solves
+replayed from one and the solves run eagerly.
 
 Across ranks (`parallel/`): with coils sharded the three inner products of an
 iteration are summed over each axis of ``reduce_axes``; with spokes sharded
@@ -55,76 +53,37 @@ every rank of the group, so all ranks leave the loop together.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import warnings
-from collections.abc import MutableMapping
 
 import torch
 
+from tron_tpu_torch import graphs
 from tron_tpu_torch.config import ReconConfig
 from tron_tpu_torch.nufft import nufft_adjoint, nufft_adjoint_exact, nufft_forward, sdc_weights
-from tron_tpu_torch.ops import degrid_cuda, grid_cuda
 from tron_tpu_torch.ops.degrid import lattice_radii
 from tron_tpu_torch.parallel.distributed import MeshAxis, psum
 from tron_tpu_torch.tracing import span
 
-CGNR_GRAPH_COUNTS = {"captured": 0, "replayed": 0, "eager": 0}
-# captured iterations kept, most recently used last; each holds its
-# geometry's intermediates (grids, samples, the gridder's workspace)
-_GRAPHS_KEPT = 4
-_graphs: collections.OrderedDict = collections.OrderedDict()
+_cg_graphs = graphs.Cache()
+CGNR_GRAPH_COUNTS = _cg_graphs.counts
+reset_cgnr_graph_counts = _cg_graphs.reset_counts
+_counts = {"solves": 0, "iterations": 0}
+# the live iterations of graphed solves, one int64 a device
+_live: dict = {}
 
 
-class _Counts(MutableMapping):
+def cgnr_counts() -> dict:
     """``{"solves": ..., "iterations": ...}``, so a caller can see an early
-    stop.  A graphed solve counts its iterations on the device; reading
-    "iterations" adds in what each cached graph counted since the last read
-    (one device read a graph), so a solve itself never reads it."""
-
-    def __init__(self):
-        self._n = {"solves": 0, "iterations": 0}
-
-    def fold(self) -> None:
-        for g in _graphs.values():
-            self._n["iterations"] += g.take_iterations()
-
-    def add(self, key: str, n: int) -> None:
-        self._n[key] += n
-
-    def __getitem__(self, key):
-        if key == "iterations":
-            self.fold()
-        return self._n[key]
-
-    def __setitem__(self, key, value):
-        self.fold()
-        self._n[key] = value
-
-    def __delitem__(self, key):
-        raise TypeError("the CGNR counts keep their keys")
-
-    def __iter__(self):
-        return iter(self._n)
-
-    def __len__(self):
-        return len(self._n)
-
-    def __repr__(self):
-        return repr(dict(self.items()))
-
-
-CGNR_COUNTS = _Counts()
+    stop; reads each device's count of graphed iterations (a device read)."""
+    return {"solves": _counts["solves"],
+            "iterations": _counts["iterations"] + sum(int(n) for n in _live.values())}
 
 
 def reset_cgnr_counts() -> None:
-    for k in CGNR_COUNTS:
-        CGNR_COUNTS[k] = 0
-
-
-def reset_cgnr_graph_counts() -> None:
-    for k in CGNR_GRAPH_COUNTS:
-        CGNR_GRAPH_COUNTS[k] = 0
+    _counts.update(solves=0, iterations=0)
+    for n in _live.values():
+        n.zero_()
 
 
 def _weights(
@@ -339,11 +298,8 @@ class _CGGraph:
     geometry's first solve runs its first iteration eagerly, which warms
     cuFFT's plans, the kernels and their cached tables, so the capture that
     follows copies nothing from the host; the capture is one ``_cg_step``
-    on the static state, which also counts the live iterations on the
-    device, and every later iteration is a replay.  The capture launches
-    nothing, so the kernels' launch counts are taken back after it and each
-    replay adds what the step launches.  The capture is thread-local, as
-    `recon._FrameGraph`'s; a failed capture raises."""
+    on the static state, which also adds the live iteration to the device's
+    count, and every later iteration is a replay."""
 
     def __init__(self, data, angles, cfg, npe_total, toeplitz):
         npe, nro = data.shape[-2:]
@@ -357,24 +313,10 @@ class _CGGraph:
         if toeplitz:
             self.mult = torch.zeros((2 * n, 2 * n), dtype=torch.complex64, device=data.device)
             self.normal = lambda x: toeplitz_apply(x, self.mult)
-        self.graph = self.state = None
-        self.folded = 0
+        self.chain = self.state = None
 
-    def _capture(self) -> None:
-        grid_before, degrid_before = dict(grid_cuda.LAUNCH_COUNTS), degrid_cuda.LAUNCHES
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.device(self.count.device):
-                stream = torch.cuda.Stream(self.count.device)
-                with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-                    self.count.add_(_cg_step(*self.state))
-        finally:
-            self.grid_launches = {k: grid_cuda.LAUNCH_COUNTS[k] - v
-                                  for k, v in grid_before.items()}
-            self.degrid_launches = degrid_cuda.LAUNCHES - degrid_before
-            grid_cuda.LAUNCH_COUNTS.update(grid_before)
-            degrid_cuda.LAUNCHES = degrid_before
-        self.graph = graph
+    def _step(self, x, r, p, rs, thresh, count) -> None:
+        count.add_(_cg_step(x, r, p, rs, thresh, self.normal, _inner))
 
     def solve(self, data, angles, rtol: float, niter: int) -> torch.Tensor:
         self.angles.copy_(angles)
@@ -386,57 +328,29 @@ class _CGGraph:
                 b = self.AHW(data)
             bb = _inner(b, b)
             if self.state is None:
+                if b.device not in _live:
+                    _live[b.device] = torch.zeros((), dtype=torch.int64, device=b.device)
                 vecs = tuple(torch.zeros_like(b) for _ in range(3))
-                scalars = (torch.zeros_like(bb), torch.zeros_like(bb))
-                self.state = (*vecs, *scalars, self.normal, _inner)
-                self.count = torch.zeros((), dtype=torch.int64, device=b.device)
-            x, r, p, rs, thresh = self.state[:5]
+                self.state = (*vecs, torch.zeros_like(bb), torch.zeros_like(bb), _live[b.device])
+            x, r, p, rs, thresh, _ = self.state
             thresh.copy_(rtol * rtol * bb)
             x.zero_()
             r.copy_(b)
             p.copy_(b)
             rs.copy_(bb)
             done = 0
-            if self.graph is None:
+            if self.chain is None:
                 with span("tron.cgnr_iter"):
-                    self.count.add_(_cg_step(*self.state))
+                    self._step(*self.state)
                 with span("tron.cgnr_graph"):
-                    self._capture()
+                    self.chain = graphs.Chain(self._step, *self.state)
                 CGNR_GRAPH_COUNTS["captured"] += 1
                 done = 1
             for _ in range(done, niter):
                 with span("tron.cgnr_iter"):
-                    self.graph.replay()
-                    for k, v in self.grid_launches.items():
-                        grid_cuda.LAUNCH_COUNTS[k] += v
-                    degrid_cuda.LAUNCHES += self.degrid_launches
+                    self.chain.replay()
             # the static x is overwritten by the next solve
             return x.clone()
-
-    def take_iterations(self) -> int:
-        """Live iterations run since the last call (a device read)."""
-        if self.state is None:
-            return 0
-        total = int(self.count)
-        n, self.folded = total - self.folded, total
-        return n
-
-
-def _graph_for(data, angles, cfg, npe_total, toeplitz) -> _CGGraph:
-    """The cached graph of this geometry, made on a miss (its capture waits
-    for its first solve).  The key holds all the captured step depends on:
-    the data's device, shape and dtype, the angles' dtype, the
-    configuration, the kernel tuning it resolves to, the operator mode and
-    the spoke count the weights come from."""
-    key = (data.device, tuple(data.shape), data.dtype, angles.dtype, cfg, cfg.kernel_tuning(),
-           toeplitz, npe_total)
-    graph = _graphs.pop(key, None)
-    if graph is None:
-        graph = _CGGraph(data, angles, cfg, npe_total, toeplitz)
-    _graphs[key] = graph
-    while len(_graphs) > _GRAPHS_KEPT:
-        CGNR_COUNTS.add("iterations", _graphs.popitem(last=False)[1].take_iterations())
-    return graph
 
 
 def cgnr_radial2d(
@@ -473,8 +387,12 @@ def cgnr_radial2d(
     mode, toeplitz = _resolve(operators, cfg, data.device)
     if (data.is_cuda and mode == "pair" and niter > 0 and not reduce_axes
             and spoke_axis is None and sample_mask is None):
-        x = _graph_for(data, angles, cfg, npe_total, toeplitz).solve(data, angles, rtol, niter)
-        CGNR_COUNTS.add("solves", 1)
+        # a miss makes the graph; its first solve captures
+        key = (data.device, tuple(data.shape), data.dtype, angles.dtype, cfg,
+               cfg.kernel_tuning(), toeplitz, npe_total)
+        graph = _cg_graphs.get(key, lambda: _CGGraph(data, angles, cfg, npe_total, toeplitz))
+        x = graph.solve(data, angles, rtol, niter)
+        _counts["solves"] += 1
         CGNR_GRAPH_COUNTS["replayed"] += 1
         return x
 
@@ -504,8 +422,8 @@ def cgnr_radial2d(
                     break
                 _cg_step(x, r, p, rs, thresh, normal, inner)
             k += 1
-    CGNR_COUNTS.add("solves", 1)
-    CGNR_COUNTS.add("iterations", k)
+    _counts["solves"] += 1
+    _counts["iterations"] += k
     CGNR_GRAPH_COUNTS["eager"] += 1
     return x
 
