@@ -908,3 +908,50 @@ def test_sharded_cgnr_captures_nothing(dev):
     got = solver.cgnr_radial2d(d, a0, cfg, niter=4)
     assert solver.CGNR_GRAPH_COUNTS["captured"] == 1
     assert torch.equal(coil, got) and torch.equal(spoke, got)
+
+
+# -- the host driver's input path ----------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["C", "F"])
+def test_series_relaid_on_the_card_is_the_host_relayout(dev, monkeypatch, order):
+    """The whole-body series (6 coils, 512 readouts, 956 frames of 204
+    spokes sliding by 21, bfloat16), uploaded in its own order (C, as the
+    benchmark's input; F, as a .ra payload) and permuted on the card: its
+    images are bitwise those of the former host transpose, it counts
+    ``as_is``, and the peak of device memory rises by at most one input
+    copy."""
+    from tron_tpu_torch import recon
+    from tron_tpu_torch.config import ReconConfig
+
+    cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21)
+    assert cfg.frame_geometry(512, 20271) == (204, 21, 956)
+    g = torch.Generator(device=dev).manual_seed(2**33 + 24)
+    x = torch.randn((6, 1, 512, 20271), generator=g, device=dev, dtype=torch.complex64)
+    x = x.cpu().numpy()
+    if order == "F":
+        x = np.asfortranarray(x)
+
+    def series():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = recon.recon_radial2d(x, cfg, device=dev)
+        return out, torch.cuda.max_memory_allocated(dev)
+
+    recon.reset_upload_counts()
+    got, peak = series()
+    assert recon.UPLOAD_COUNTS == {"as_is": 1, "host_copy": 0}
+
+    def host_relaid(host, dims):
+        arr, device = host
+        return torch.from_numpy(
+            np.ascontiguousarray(np.transpose(arr, dims), dtype=np.complex64)).to(device)
+
+    monkeypatch.setattr(recon, "_upload", lambda arr, device: (arr, device))
+    monkeypatch.setattr(recon, "_relaid", host_relaid)
+    want, want_peak = series()
+    assert got.shape == want.shape == (956, 1, 256, 256)
+    np.testing.assert_array_equal(got, want)
+    assert peak <= want_peak + x.nbytes, (peak, want_peak, x.nbytes)

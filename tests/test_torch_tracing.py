@@ -57,8 +57,9 @@ def test_recon_records_its_spans_in_order(case):
     assert {n for _, _, n in spans} <= set(tracing.SPANS)
     by = {name: [(s, e) for s, e, n in spans if n == name] for name in tracing.SPANS}
     assert [len(by[n]) for n in TOP] == [1, 1, nt, nt * NZ, 1]
-    # relayout < upload < (prep < that repetition's frames) per repetition < readback
-    order = [by["tron.relayout"][0], by["tron.upload"][0]]
+    # upload < relayout (the permute on the device) < (prep < that
+    # repetition's frames) per repetition < readback
+    order = [by["tron.upload"][0], by["tron.relayout"][0]]
     for t in range(nt):
         order += [by["tron.prep"][t]] + by["tron.frame"][t * NZ:(t + 1) * NZ]
     order.append(by["tron.readback"][0])

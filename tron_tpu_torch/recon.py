@@ -15,6 +15,12 @@ combine and the CGNR inner products then finish over that axis
 scheduler's sample prep, each frame and each capture are spans
 (`tracing.py`).
 
+An in-memory input goes to the device in the memory order it has
+(`_upload`) and is relaid there, so the host does no transpose;
+``UPLOAD_COUNTS`` counts the uploads that went up as they were
+(``as_is``) and those that first took a host copy (``host_copy``);
+``reset_upload_counts()`` zeroes them.
+
 ``FRAME_GRAPH_COUNTS`` counts the direct scheduler's graph captures, its
 frames replayed from a graph and its frames run eagerly;
 ``reset_frame_graph_counts()`` zeroes them.
@@ -23,6 +29,7 @@ frames replayed from a graph and its frames run eagerly;
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -52,6 +59,43 @@ from tron_tpu_torch.trajectory import spoke_angle_table, spoke_angles
 _frame_graphs = graphs.Cache()
 FRAME_GRAPH_COUNTS = _frame_graphs.counts
 reset_frame_graph_counts = _frame_graphs.reset_counts
+
+UPLOAD_COUNTS = {"as_is": 0, "host_copy": 0}
+
+
+def reset_upload_counts() -> None:
+    for key in UPLOAD_COUNTS:
+        UPLOAD_COUNTS[key] = 0
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    """Host array -> complex64 tensor on ``device`` of the same shape, copied
+    in the memory order the array has: a C-contiguous array goes up as it
+    is, a Fortran-contiguous one (a .ra payload read by ``ra_read``) as its
+    transpose, viewed back on the device.  Any other view, or another dtype,
+    first takes one host copy.  On the CPU the result may share the array's
+    memory."""
+    a = np.asarray(arr)
+    contiguous = a.flags.c_contiguous or a.flags.f_contiguous
+    if a.dtype == np.complex64 and contiguous:
+        UPLOAD_COUNTS["as_is"] += 1
+    else:
+        UPLOAD_COUNTS["host_copy"] += 1
+        a = a.astype(np.complex64) if contiguous else np.ascontiguousarray(a, np.complex64)
+    with warnings.catch_warnings():
+        # a read-only array (ra_read's) is only read: copied to the device,
+        # or on the CPU relaid into a fresh tensor before any write
+        warnings.filterwarnings("ignore", "The given NumPy array is not writable")
+        if a.flags.c_contiguous:
+            return torch.from_numpy(a).to(device)
+        return torch.from_numpy(a.T).to(device).permute(*reversed(range(a.ndim)))
+
+
+def _relaid(raw: torch.Tensor, dims: tuple[int, ...]) -> torch.Tensor:
+    """``raw.permute(*dims)`` as a fresh C-contiguous tensor: the relayout
+    of an uploaded array, on the device, where the transpose moves the
+    bytes through device memory and not the host's."""
+    return raw.permute(*dims).clone(memory_format=torch.contiguous_format)
 
 
 def _fetch_host(dev: torch.Tensor, half: bool) -> np.ndarray:
@@ -343,14 +387,11 @@ def recon_radial2d(
     nc, nt, nro, npe1 = indata.shape[:4]
     work, slide, nz = cfg.frame_geometry(nro, npe1)
     # ops layout: channels = nt*nc, spokes, readout
-    with span("tron.relayout"):
-        dnp = np.ascontiguousarray(
-            np.transpose(indata.reshape(nc, nt, nro, npe1, -1)[..., 0], (1, 0, 3, 2)),
-            dtype=np.complex64,
-        ).reshape(nt * nc, npe1, nro)
-        h = torch.from_numpy(dnp)
     with span("tron.upload"):
-        d = h.to(device)
+        raw = _upload(indata.reshape(nc, nt, nro, npe1, -1)[..., 0], device)
+    with span("tron.relayout"):
+        d = _relaid(raw, (1, 0, 3, 2)).view(nt * nc, npe1, nro)
+    del raw  # the device copy in the input's order, freed once d is enqueued
     if 0 < cfg.coil_compress < nc:
         # per repetition, from that repetition's own samples
         dc = d.reshape(nt, nc, npe1, nro)
@@ -639,11 +680,8 @@ def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarra
     nc, nt, nx, ny, nz = indata.shape[:5]
     nro = int(cfg.gridos * nx)
     npe1 = int(cfg.data_undersamp * nro)
-    # (nc, nt, nx, ny, nz) -> (nz, nc*nt, ny, nx) host-side
-    imgs = np.ascontiguousarray(
-        np.transpose(np.asarray(indata), (4, 0, 1, 3, 2)), dtype=np.complex64
-    ).reshape(nz, nc * nt, ny, nx)
-    d = torch.from_numpy(imgs).to(device)
+    # (nc, nt, nx, ny, nz) -> (nz, nc*nt, ny, nx), relaid on the device
+    d = _relaid(_upload(indata, device), (4, 0, 1, 3, 2)).view(nz, nc * nt, ny, nx)
     angles = spoke_angles(npe1, cfg.scheme_for("forward"), cfg.skip_angles, device=d.device)
     out = _map_frames(lambda z: nufft_forward(d[z], angles, cfg, nro=nro), nz)
     return out.cpu().numpy().reshape(nz, nc, nt, npe1, nro)
@@ -652,19 +690,6 @@ def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarra
 # -- 3-D stack of stars (`-3`) -----------------------------------------------
 
 KZ_BLOCK = 8  # kz slices reconstructed per readback
-
-
-def _upload(arr: np.ndarray, device) -> torch.Tensor:
-    """Host array -> complex64 device tensor of the same shape, with no
-    host-side relayout when the array is contiguous in either order (a .ra
-    payload read by ``ra_read`` is Fortran-ordered: it goes up as its
-    transpose and is viewed back on the device)."""
-    a = np.asarray(arr)
-    if a.dtype != np.complex64:
-        a = a.astype(np.complex64)
-    if a.flags.f_contiguous and not a.flags.c_contiguous:
-        return torch.from_numpy(a.T).to(device).permute(*reversed(range(a.ndim)))
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _recon_stack_of_stars(

@@ -7,9 +7,11 @@ kernels and copies; otherwise it is one shared null context, and the
 recon pays a module attribute's check for it.  ``SPANS`` names every span
 the port records:
 
-- ``tron.relayout``: `recon.recon_radial2d`'s host transpose of the input
-  into the ops layout, and its wrap as a tensor;
-- ``tron.upload``: that tensor's copy to the device;
+- ``tron.upload``: `recon.recon_radial2d`'s copy of the input to the
+  device in the memory order the host array has (after one host copy
+  where it is neither C- nor Fortran-contiguous complex64);
+- ``tron.relayout``: the permute of that copy into the ops layout, on the
+  device;
 - ``tron.prep``: the once-per-series sample prep of a frame scheduler
   (density compensation, the sample planes);
 - ``tron.frame``: one frame of a frame loop, its write into the output
