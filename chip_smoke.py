@@ -34,7 +34,8 @@ Phases, one line each (any failure raises and exits non-zero):
              float32 and at bf16x3 (--precision accurate: two launches a
              frame, the wrap-edge readouts the float32 run's bit for bit)
  12 cgnr     -a -G -u 0.4 -d 21 -i 10 on the whole-body series, with launch
-             counts, vs plain-operator CGNR; --toeplitz on 8 frames
+             counts, vs plain-operator CGNR; --toeplitz on 8 frames (one
+             gridded multiplier a frame, solver.TOEPLITZ_COUNTS)
  13 solver   6-coil birdcage Shepp-Logan 256^2: CGNR beats the adjoint and
              its data residual falls
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
@@ -232,6 +233,7 @@ def main() -> int:
     from tron_tpu_torch.kernels.kb import kb_beta
     from tron_tpu_torch.ops import grid_cuda
     from tron_tpu_torch import recon as recon_mod
+    from tron_tpu_torch import solver as solver_mod
     from tron_tpu_torch.nufft import _adjoint_epilogue, sdc_weights
     from tron_tpu_torch.ops.grid import grid_radial2d as grid_dense
     from tron_tpu_torch.ops.grid import grid_radial2d_planes_plain
@@ -859,14 +861,19 @@ def main() -> int:
     tcfg = dataclasses.replace(ccfg, toeplitz=True)
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
+    solver_mod.reset_toeplitz_counts()
     tout = recon_radial2d(probe, tcfg, device=dev)
+    psf_counts = dict(solver_mod.TOEPLITZ_COUNTS)
     log("cgnr", f"--toeplitz on 8 frames: out {tout.shape}, grid launches "
-        f"{grid_cuda.LAUNCHES}, degrid launches {degrid_cuda.LAUNCHES}; vs pair-mode CGNR "
+        f"{grid_cuda.LAUNCHES}, degrid launches {degrid_cuda.LAUNCHES}, multipliers built "
+        f"{psf_counts}; vs pair-mode CGNR "
         f"frames 0-7: nrmse {nrmse(tout[:, 0], cout[:8, 0]):.3e} (NUFFT-level, not a bound)")
     require(tout.shape == (8, 1, n_img, n_img), f"toeplitz shape {tout.shape}")
     require(bool(np.isfinite(tout).all()), "toeplitz output not finite")
     require(grid_cuda.LAUNCHES == 16 and degrid_cuda.LAUNCHES == 0,
             "toeplitz: expected 2 grid launches (kernel, right side) per frame, no degrid")
+    require(psf_counts == {"nufft": 8, "exact": 0},
+            f"toeplitz: multipliers built {psf_counts}, expected one gridded a frame, no exact")
 
     # -- 13 solver sanity on the phantom -------------------------------------
     from tron_tpu_torch.metrics import lmse

@@ -892,6 +892,34 @@ def test_cgnr_graph_under_the_profiler(dev):
 
 
 @pytest.mark.gpu
+def test_toeplitz_graph_builds_its_multiplier_inside_the_solve(dev):
+    """A graphed Toeplitz solve under the profiler opens one
+    `tron.toeplitz_psf`, inside its `tron.cgnr` and before its right side,
+    and builds one gridded multiplier a solve (`TOEPLITZ_COUNTS`); its bits
+    are the eager loop's."""
+    solver = _fresh_cgnr()
+    solver.reset_toeplitz_counts()
+    cfg, d, (a0, a1) = _cgnr_case(dev, (3, 51, 128), 35)
+    solver.cgnr_radial2d(d, a0, cfg, niter=5, operators="toeplitz")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = solver.cgnr_radial2d(d, a1, cfg, niter=5, operators="toeplitz")
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+            for e in prof.profiler.kineto_results.events() if e.device_type() != cuda]
+    by = {k: [(s, t) for s, t, n in host if n == k]
+          for k in ("tron.toeplitz_psf", "tron.cgnr", "tron.cgnr_rhs")}
+    assert [len(v) for v in by.values()] == [1, 1, 1]
+    (ps, pe), (cs, ce), (rs, _) = (v[0] for v in by.values())
+    assert cs <= ps and pe <= rs and pe <= ce
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 0}
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 2, "exact": 0}
+    assert torch.equal(got, _eager_cgnr(solver, d, a1, cfg, niter=5, operators="toeplitz"))
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 3, "exact": 0}
+
+
+@pytest.mark.gpu
 def test_sharded_cgnr_captures_nothing(dev):
     """A coil-sharded and a spoke-sharded solve (axes of one rank here) keep
     the eager loop, and give the graphed solve's bits."""

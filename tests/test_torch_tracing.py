@@ -182,3 +182,46 @@ def test_cgnr_graph_span_is_listed():
     iteration's."""
     i = tracing.SPANS.index("tron.cgnr_iter")
     assert tracing.SPANS[i + 1] == "tron.cgnr_graph"
+
+
+TOEPLITZ_CASES = {"toeplitz": {"niter": 10, "toeplitz": True}, "pair": {"niter": 10},
+                  "adjoint": {}}
+
+
+def _toeplitz_recon(case: str):
+    indata, cfg = _input(1), _cfg(**TOEPLITZ_CASES[case])
+    return lambda: recon.recon_radial2d(indata, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", list(TOEPLITZ_CASES))
+def test_toeplitz_psf_span_one_a_frame_inside_the_solve(case):
+    """A Toeplitz recon opens one `tron.toeplitz_psf` a frame, inside that
+    frame's `tron.cgnr` and before its right side; a recon on the pair's
+    normal operator, and the direct adjoint, open none."""
+    out, spans = _profiled(_toeplitz_recon(case))
+    assert out.shape == (NZ, 1, NRO // 2, NRO // 2)
+    by = {name: [(s, e) for s, e, n in spans if n == name] for name in tracing.SPANS}
+    if case != "toeplitz":
+        assert not by["tron.toeplitz_psf"]
+        return
+    assert len(by["tron.toeplitz_psf"]) == len(by["tron.cgnr"]) == NZ
+    for (ps, pe), (cs, ce), (rs, _) in zip(by["tron.toeplitz_psf"], by["tron.cgnr"],
+                                           by["tron.cgnr_rhs"]):
+        assert cs <= ps and pe <= rs and pe <= ce
+
+
+def test_toeplitz_spans_off_change_no_bit():
+    """With no profiler a Toeplitz recon enters no record_function, and its
+    images are bitwise those of a profiled run."""
+    run = _toeplitz_recon("toeplitz")
+    want, spans = _profiled(run)
+    assert "tron.toeplitz_psf" in {n for _, _, n in spans}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
+        np.testing.assert_array_equal(run(), want)
+
+
+def test_toeplitz_psf_span_is_listed():
+    """The multiplier's build is a span of its own, after the capture's."""
+    i = tracing.SPANS.index("tron.cgnr_graph")
+    assert tracing.SPANS[i + 1] == "tron.toeplitz_psf"

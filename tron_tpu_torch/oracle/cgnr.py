@@ -206,7 +206,14 @@ def cgnr(d: torch.Tensor, angles: torch.Tensor, kw: float, niter: int, rtol: flo
     (F, npe) -> (coil images (F, C, n, n), iterations each frame ran (F,))."""
     ops = Frames(angles, d.shape[-1], kw, quant)
     W = weights(d.shape[-1], d.shape[-2]).to(d.device)
-    b = ops.adjoint(W * d)
+    return cg(ops.adjoint(W * d), lambda p: ops.adjoint(W * ops.forward(p)), niter, rtol)
+
+
+def cg(b: torch.Tensor, normal, niter: int, rtol: float = RTOL
+       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """CG from 0 on normal(x) = b, each frame of b (F, C, n, n) on its own:
+    at most ``niter`` iterations, a frame frozen once its residual's squared
+    norm falls to rtol^2 <b, b> -> (x, iterations each frame ran (F,))."""
     thresh = rtol * rtol * _inner(b, b)
     x, r, p = torch.zeros_like(b), b, b
     rs = _inner(r, r)
@@ -216,7 +223,7 @@ def cgnr(d: torch.Tensor, angles: torch.Tensor, kw: float, niter: int, rtol: flo
         live = live & (rs > thresh)
         if not bool(live.any()):
             break
-        Ap = ops.adjoint(W * ops.forward(p))
+        Ap = normal(p)
         alpha = torch.where(live, rs / torch.clamp(_inner(p, Ap), min=1e-30), 0.0)
         x = x + alpha[:, None, None, None] * p
         r = r - alpha[:, None, None, None] * Ap

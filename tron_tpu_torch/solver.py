@@ -37,10 +37,13 @@ graph (a geometry's first iteration: the step run eagerly, before the
 capture), so such a solve always opens ``niter`` of them, those past
 convergence running a step that changes nothing.  The capture, once per
 geometry after its first solve's first iteration, is ``tron.cgnr_graph``.
-``cgnr_counts()`` reads the solves and the iterations they ran (a graphed
-solve's are counted in one int64 on its device, which the captured step
-adds to); ``CGNR_GRAPH_COUNTS`` counts the graphs captured, the solves
-replayed from one and the solves run eagerly.
+Each build of the Toeplitz multiplier is ``tron.toeplitz_psf``, inside its
+solve's ``tron.cgnr``.  ``cgnr_counts()`` reads the solves and the
+iterations they ran (a graphed solve's are counted in one int64 on its
+device, which the captured step adds to); ``CGNR_GRAPH_COUNTS`` counts the
+graphs captured, the solves replayed from one and the solves run eagerly;
+``TOEPLITZ_COUNTS`` the multipliers built by each method ("nufft", the
+gridded build, or "exact", the DTFT sum it falls to off gridos 2).
 
 Across ranks (`parallel/`): with coils sharded the three inner products of an
 iteration are summed over each axis of ``reduce_axes``; with spokes sharded
@@ -69,6 +72,7 @@ _cg_graphs = graphs.Cache()
 CGNR_GRAPH_COUNTS = _cg_graphs.counts
 reset_cgnr_graph_counts = _cg_graphs.reset_counts
 _counts = {"solves": 0, "iterations": 0}
+TOEPLITZ_COUNTS = {"nufft": 0, "exact": 0}
 # the live iterations of graphed solves, one int64 a device
 _live: dict = {}
 
@@ -84,6 +88,10 @@ def reset_cgnr_counts() -> None:
     _counts.update(solves=0, iterations=0)
     for n in _live.values():
         n.zero_()
+
+
+def reset_toeplitz_counts() -> None:
+    TOEPLITZ_COUNTS.update(nufft=0, exact=0)
 
 
 def _weights(
@@ -153,6 +161,7 @@ def toeplitz_fourier_kernel(
             "method='exact' or 'auto'"
         )
 
+    TOEPLITZ_COUNTS[method] += 1
     if method == "exact":
         from tron_tpu_torch.oracle.dtft import dtft2_adjoint_chunked
 
@@ -251,11 +260,12 @@ def _operators(
         raise ValueError(f"unknown operators {operators!r}")
 
     if toeplitz:
-        mult = toeplitz_fourier_kernel(
-            angles, cfg, nro, npe_total=npe_total, sample_mask=sample_mask
-        )
-        # after this one sum the iterations need no collective
-        mult = psum(mult, spoke_axis)
+        with span("tron.toeplitz_psf"):
+            mult = toeplitz_fourier_kernel(
+                angles, cfg, nro, npe_total=npe_total, sample_mask=sample_mask
+            )
+            # after this one sum the iterations need no collective
+            mult = psum(mult, spoke_axis)
         return AHW, lambda x: toeplitz_apply(x, mult)
     return AHW, lambda x: AHW(fwd(x))
 
@@ -320,10 +330,11 @@ class _CGGraph:
 
     def solve(self, data, angles, rtol: float, niter: int) -> torch.Tensor:
         self.angles.copy_(angles)
-        if self.mult is not None:
-            self.mult.copy_(toeplitz_fourier_kernel(self.angles, self.cfg, self.nro,
-                                                    npe_total=self.npe_total))
         with span("tron.cgnr"):
+            if self.mult is not None:
+                with span("tron.toeplitz_psf"):
+                    self.mult.copy_(toeplitz_fourier_kernel(self.angles, self.cfg, self.nro,
+                                                            npe_total=self.npe_total))
             with span("tron.cgnr_rhs"):
                 b = self.AHW(data)
             bb = _inner(b, b)
@@ -402,14 +413,14 @@ def cgnr_radial2d(
     # readout 0 (one sample per spoke at the highest |k|, never gridded) is
     # weighted out in every mode, so all modes solve one problem
     w = _weights(cfg, nro, npe_total or npe, data.device, sample_mask).to(data.dtype)
-    AHW, normal = _operators(
-        angles, cfg, nro, img_shape, w, operators, spoke_axis, npe_total, sample_mask
-    )
 
     def inner(a, bb):
         return _inner(a, bb, reduce_axes)
 
     with span("tron.cgnr"):
+        AHW, normal = _operators(
+            angles, cfg, nro, img_shape, w, operators, spoke_axis, npe_total, sample_mask
+        )
         with span("tron.cgnr_rhs"):
             b = AHW(data)
         rs = inner(b, b)

@@ -28,6 +28,10 @@ the port records:
   step run eagerly before the capture), ``niter`` of them a solve whatever
   the stop test finds; ``tron.cgnr_graph``: the capture of one CG step as
   a CUDA graph (once per geometry, inside that solve's ``tron.cgnr``);
+  ``tron.toeplitz_psf``: one build of a solve's Toeplitz multiplier
+  (`solver.toeplitz_fourier_kernel`: the weights gridded at the doubled
+  geometry, the epilogue and the FFT), inside its ``tron.cgnr``, before
+  the right side;
 - ``tron.<kernel>`` for each gridding kernel (`ops/grid_cuda.KERNELS`):
   one gridding wrapper call, routed to that kernel or, on the CPU, to its
   plain version;
@@ -52,6 +56,7 @@ SPANS = (
     "tron.cgnr_rhs",
     "tron.cgnr_iter",
     "tron.cgnr_graph",
+    "tron.toeplitz_psf",
     "tron.grid_radial2d",
     "tron.grid_radial2d_batched",
     "tron.grid_seg_radial2d",
