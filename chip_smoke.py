@@ -35,7 +35,9 @@ Phases, one line each (any failure raises and exits non-zero):
              frame, the wrap-edge readouts the float32 run's bit for bit)
  12 cgnr     -a -G -u 0.4 -d 21 -i 10 on the whole-body series, with launch
              counts, vs plain-operator CGNR; --toeplitz on 8 frames (one
-             gridded multiplier a frame, solver.TOEPLITZ_COUNTS)
+             gridded multiplier a frame, solver.TOEPLITZ_COUNTS; each solve's
+             prologue replayed after a geometry's first,
+             solver.CGNR_PROLOGUE_COUNTS)
  13 solver   6-coil birdcage Shepp-Logan 256^2: CGNR beats the adjoint and
              its data residual falls
  14 cli2     tron-torch forward and -i 4 on .ra fixtures
@@ -839,10 +841,14 @@ def main() -> int:
     cin = indata if nzc == NZ else np.ascontiguousarray(indata[..., : work + (nzc - 1) * SLIDE])
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
+    solver_mod.reset_cgnr_prologue_counts()
     t0 = time.perf_counter()
     cout = recon_radial2d(cin, ccfg, device=dev)
     wall = time.perf_counter() - t0
     cg_grid, cg_degrid = grid_cuda.LAUNCHES, degrid_cuda.LAUNCHES
+    require(solver_mod.CGNR_PROLOGUE_COUNTS == {"replayed": nzc, "eager": 0},
+            f"cgnr: prologues {solver_mod.CGNR_PROLOGUE_COUNTS}, expected {nzc} replayed "
+            "(the probe captured the geometry)")
     log("cgnr", f"recon_radial2d -a -G -u 0.4 -d {SLIDE} -i {NITER}: out {cout.shape}, grid "
         f"launches {cg_grid} ({cg_grid / nzc:g} per frame), degrid launches {cg_degrid} "
         f"({cg_degrid / nzc:g} per frame), host wall {wall:.2f} s (incl. transfers)")
@@ -862,8 +868,12 @@ def main() -> int:
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
     solver_mod.reset_toeplitz_counts()
+    solver_mod.reset_cgnr_prologue_counts()
     tout = recon_radial2d(probe, tcfg, device=dev)
     psf_counts = dict(solver_mod.TOEPLITZ_COUNTS)
+    require(solver_mod.CGNR_PROLOGUE_COUNTS == {"replayed": 7, "eager": 1},
+            f"toeplitz: prologues {solver_mod.CGNR_PROLOGUE_COUNTS}, expected the first frame's "
+            "eager and 7 replayed")
     log("cgnr", f"--toeplitz on 8 frames: out {tout.shape}, grid launches "
         f"{grid_cuda.LAUNCHES}, degrid launches {degrid_cuda.LAUNCHES}, multipliers built "
         f"{psf_counts}; vs pair-mode CGNR "

@@ -750,6 +750,8 @@ def _fresh_cgnr():
     solver._cg_graphs.entries.clear()
     solver.reset_cgnr_counts()
     solver.reset_cgnr_graph_counts()
+    solver.reset_cgnr_prologue_counts()
+    solver.reset_toeplitz_counts()
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
     return solver
@@ -790,39 +792,65 @@ def test_cgnr_graph_is_the_eager_loop(dev, operators, shape, matmul_dtype, backe
     replays it niter times: bitwise the eager loop, for two frames' angles
     through one graph, at a small shape and at whole-body widths (6 coils,
     204 spokes, 512 readouts, bfloat16), with the kernel pair, the Toeplitz
-    normal operator and the plain operators (backend "jnp").  The second
-    solve captures nothing; in both the gridding and degridding counters
-    grow as the eager solve's do (the first runs its first iteration
-    eagerly, then captures, launching nothing more)."""
+    normal operator and the plain operators (backend "jnp").  The first
+    solve runs its prologue eagerly and captures it; the later ones replay
+    it (`CGNR_PROLOGUE_COUNTS`) and capture nothing; in each the gridding
+    and degridding counters grow as the eager solve's do (the first runs
+    its first iteration eagerly, then captures, launching nothing more),
+    and the Toeplitz operator counts one multiplier a solve."""
     solver = _fresh_cgnr()
     cfg, d, (a0, a1) = _cgnr_case(dev, shape, 30, matmul_dtype, backend=backend)
     got0 = solver.cgnr_radial2d(d, a0, cfg, niter=10, operators=operators)
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 1, "eager": 0}
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 0, "eager": 1}
     first = _counters()
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
     got1 = solver.cgnr_radial2d(d, a1, cfg, niter=10, operators=operators)
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 0}
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
     graphed = _counters()
+    again0 = solver.cgnr_radial2d(d, a0, cfg, niter=10, operators=operators)
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 2, "eager": 1}
     grid_cuda.reset_launches()
     degrid_cuda.reset_launches()
     want1 = _eager_cgnr(solver, d, a1, cfg, niter=10, operators=operators)
     assert _counters() == graphed == first
     want0 = _eager_cgnr(solver, d, a0, cfg, niter=10, operators=operators)
-    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 2}
-    assert solver.cgnr_counts() == {"solves": 4, "iterations": 40}
+    assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 3, "eager": 2}
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 2, "eager": 3}
+    assert solver.cgnr_counts() == {"solves": 5, "iterations": 50}
+    assert solver.TOEPLITZ_COUNTS["nufft"] == (5 if operators == "toeplitz" else 0)
     assert torch.isfinite(torch.view_as_real(want0)).all() and not torch.equal(want0, want1)
-    assert torch.equal(got0, want0) and torch.equal(got1, want1)
+    assert torch.equal(got0, want0) and torch.equal(got1, want1) and torch.equal(again0, want0)
     if backend == "auto":
         kernels = (11, 10) if operators == "pair" else (2, 0)  # + the multiplier's B1
         assert graphed == kernels
 
 
 @pytest.mark.gpu
+def test_toeplitz_graph_off_gridos_2_is_the_eager_loop(dev):
+    """At gridos 1.5 the graphed Toeplitz solve captures the exact DTFT
+    multiplier and the exact-lattice right side: a replayed prologue gives
+    the eager loop's bits and counts one "exact" multiplier a solve."""
+    solver = _fresh_cgnr()
+    cfg, d, (a0, a1) = _cgnr_case(dev, (3, 51, 128), 36, gridos=1.5)
+    got = [solver.cgnr_radial2d(d, a, cfg, niter=5, operators="toeplitz") for a in (a0, a1)]
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 0, "exact": 2}
+    for a, x in zip((a0, a1), got):
+        assert torch.equal(x, _eager_cgnr(solver, d, a, cfg, niter=5, operators="toeplitz"))
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 0, "exact": 4}
+
+
+@pytest.mark.gpu
 def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
     """With an rtol that the residual passes after k < niter iterations the
     graphed solve is bitwise the eager early stop (the later replays change
-    no bit) and each adds k to cgnr_counts()["iterations"]."""
+    no bit) and each adds k to cgnr_counts()["iterations"], its prologue
+    replayed or not.  Another rtol on the same geometry is another graph
+    (the captured threshold bakes rtol in), which stops where the eager
+    loop stops for it; the first rtol's graph still stops at k."""
     solver = _fresh_cgnr()
     cfg, d, (a0, _) = _cgnr_case(dev, (3, 51, 128), 31)
     nc, npe, nro = d.shape
@@ -835,9 +863,11 @@ def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
     for _ in range(10):
         solver._cg_step(x, r, p, rs, never, normal, solver._inner)
         hist.append(float(rs))
-    k = 4
-    assert hist[k - 1] < 0.9 * hist[k - 2]
-    rtol = ((hist[k - 1] * hist[k - 2]) ** 0.5 / bb) ** 0.5
+    rtols = {}
+    for k in (4, 6):
+        assert hist[k - 1] < 0.9 * hist[k - 2]
+        rtols[k] = ((hist[k - 1] * hist[k - 2]) ** 0.5 / bb) ** 0.5
+    k, rtol = 4, rtols[4]
     want = _eager_cgnr(solver, d, a0, cfg, niter=10, rtol=rtol)
     assert solver.cgnr_counts()["iterations"] == k
     got = solver.cgnr_radial2d(d, a0, cfg, niter=10, rtol=rtol)
@@ -845,6 +875,16 @@ def test_cgnr_graph_stops_where_the_eager_loop_stops(dev):
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 1, "eager": 1}
     assert torch.equal(got, want)
     assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=k))
+    solver.reset_cgnr_counts()
+    for k, rtol in ((6, rtols[6]), (6, rtols[6]), (4, rtols[4])):
+        got = solver.cgnr_radial2d(d, a0, cfg, niter=10, rtol=rtol)
+        assert solver.cgnr_counts()["iterations"] == k
+        solver.reset_cgnr_counts()
+        assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=10, rtol=rtol))
+        assert torch.equal(got, _eager_cgnr(solver, d, a0, cfg, niter=k))
+        solver.reset_cgnr_counts()
+    assert solver.CGNR_GRAPH_COUNTS["captured"] == 2
+    assert solver.CGNR_PROLOGUE_COUNTS["replayed"] == 2
 
 
 @pytest.mark.gpu
@@ -860,11 +900,23 @@ def test_cgnr_graph_one_per_geometry(dev):
     assert len(solver._cg_graphs.entries) == 2
 
 
+def _one_graph_launch_each(host, spans, count=None):
+    """Each of the host's ``spans`` (``count`` of them, if given) holds one
+    graph launch and no kernel launch."""
+    launch = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+    assert count is None or len(spans) == count
+    for s, t in spans:
+        inside = [n for u, _, n in host if s <= u < t]
+        assert inside.count("cudaGraphLaunch") == 1
+        assert not any(n in launch for n in inside)
+
+
 @pytest.mark.gpu
 def test_cgnr_graph_under_the_profiler(dev):
     """Each `tron.cgnr_iter` of a graphed solve holds one graph launch and
-    no other launch; the B1 and B3 kernels in the trace are as many as the
-    counters say, and the solve's bits are the eager loop's."""
+    no other launch, and so does its replayed right side `tron.cgnr_rhs`;
+    the B1 and B3 kernels in the trace are as many as the counters say,
+    and the solve's bits are the eager loop's."""
     solver = _fresh_cgnr()
     cfg, d, (a0, a1) = _cgnr_case(dev, (3, 51, 128), 33)
     solver.cgnr_radial2d(d, a0, cfg, niter=5)
@@ -880,12 +932,10 @@ def test_cgnr_graph_under_the_profiler(dev):
             if e.device_type() != cuda]
     kernels = [e.name() for e in events if e.device_type() == cuda]
     iters = [(s, t) for s, t, n in host if n == "tron.cgnr_iter"]
-    launch = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
     assert len(iters) == 5
-    for s, t in iters:
-        inside = [n for u, _, n in host if s <= u < t]
-        assert inside.count("cudaGraphLaunch") == 1
-        assert not any(n in launch for n in inside)
+    _one_graph_launch_each(host, iters)
+    _one_graph_launch_each(host, [(s, t) for s, t, n in host if n == "tron.cgnr_rhs"], 1)
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
     assert sum("grid_tile_contract_kernel" in n for n in kernels) == _counters()[0] == 6
     assert sum("degrid_radial2d_kernel" in n for n in kernels) == _counters()[1] == 5
     assert torch.equal(got, _eager_cgnr(solver, d, a1, cfg, niter=5))
@@ -895,10 +945,11 @@ def test_cgnr_graph_under_the_profiler(dev):
 def test_toeplitz_graph_builds_its_multiplier_inside_the_solve(dev):
     """A graphed Toeplitz solve under the profiler opens one
     `tron.toeplitz_psf`, inside its `tron.cgnr` and before its right side,
-    and builds one gridded multiplier a solve (`TOEPLITZ_COUNTS`); its bits
-    are the eager loop's."""
+    and builds one gridded multiplier a solve (`TOEPLITZ_COUNTS`), a
+    replayed one included; a replayed solve's `tron.toeplitz_psf` and
+    `tron.cgnr_rhs` each hold one graph launch and no kernel launch; its
+    bits are the eager loop's."""
     solver = _fresh_cgnr()
-    solver.reset_toeplitz_counts()
     cfg, d, (a0, a1) = _cgnr_case(dev, (3, 51, 128), 35)
     solver.cgnr_radial2d(d, a0, cfg, niter=5, operators="toeplitz")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -913,7 +964,9 @@ def test_toeplitz_graph_builds_its_multiplier_inside_the_solve(dev):
     assert [len(v) for v in by.values()] == [1, 1, 1]
     (ps, pe), (cs, ce), (rs, _) = (v[0] for v in by.values())
     assert cs <= ps and pe <= rs and pe <= ce
+    _one_graph_launch_each(host, by["tron.toeplitz_psf"] + by["tron.cgnr_rhs"])
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 1, "replayed": 2, "eager": 0}
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
     assert solver.TOEPLITZ_COUNTS == {"nufft": 2, "exact": 0}
     assert torch.equal(got, _eager_cgnr(solver, d, a1, cfg, niter=5, operators="toeplitz"))
     assert solver.TOEPLITZ_COUNTS == {"nufft": 3, "exact": 0}

@@ -102,16 +102,42 @@ def test_replay_copies_its_inputs_into_the_static_tensors(counters):
     assert torch.equal(x, torch.arange(3.0)) and torch.equal(ang, torch.full((3,), 4.0))
 
 
+def test_capture_takes_back_a_users_counts_and_replay_adds_them(counters):
+    """A user's own host counts (as the solver's multipliers built) are
+    taken back like the launch counters: what the capture added is undone,
+    and each replay adds it again."""
+    built = {"nufft": 2, "exact": 7}
+
+    def building(x, ang):
+        built["nufft"] += 1
+        return _launching(x, ang)
+
+    chain = graphs.Chain(building, torch.ones(3), torch.ones(3), counts=(built,))
+    assert built == {"nufft": 2, "exact": 7}
+    assert grid_cuda.LAUNCH_COUNTS == dict.fromkeys(grid_cuda.KERNELS, 3)
+    for n in (1, 2):
+        chain.replay()
+        assert built == {"nufft": 2 + n, "exact": 7}
+        assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 3 + 2 * n
+
+
 def test_failed_capture_raises_and_restores_both_counters(counters, monkeypatch):
     def failing(fn, static):
         fn(*static)
         raise RuntimeError("capture failed")
 
+    built = {"nufft": 2}
+
+    def building(x, ang):
+        built["nufft"] += 1
+        return _launching(x, ang)
+
     monkeypatch.setattr(graphs, "_capture", failing)
     with pytest.raises(RuntimeError, match="capture failed"):
-        graphs.Chain(_launching, torch.ones(3), torch.ones(3))
+        graphs.Chain(building, torch.ones(3), torch.ones(3), counts=(built,))
     assert grid_cuda.LAUNCH_COUNTS == dict.fromkeys(grid_cuda.KERNELS, 3)
     assert degrid_cuda.LAUNCHES == 5
+    assert built == {"nufft": 2}
 
 
 def _assigned_counters(tree):

@@ -333,9 +333,11 @@ def test_cpu_solve_captures_nothing():
     _, cfg, _, ang, data = _problem(24, 16)
     solver.reset_cgnr_counts()
     solver.reset_cgnr_graph_counts()
+    solver.reset_cgnr_prologue_counts()
     for operators in ("auto", "pair", "transpose", "toeplitz"):
         solver.cgnr_radial2d(_t(data), _t(ang), cfg, niter=3, operators=operators)
     assert solver.CGNR_GRAPH_COUNTS == {"captured": 0, "replayed": 0, "eager": 4}
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 0, "eager": 4}
     assert solver.cgnr_counts() == {"solves": 4, "iterations": 12}
     assert not solver._cg_graphs.entries
 
@@ -357,9 +359,101 @@ def test_cgnr_counts_fold_in_the_graphs_iterations(monkeypatch):
     assert solver.cgnr_counts() == {"solves": 1, "iterations": 10}
     live += 5
     for k in range(graphs.KEPT + 1):  # the fifth geometry drops the first
-        solver._cg_graphs.get(k, lambda: solver._CGGraph(_t(data), _t(ang), cfg, None, False))
+        solver._cg_graphs.get(k, lambda: solver._CGGraph(_t(data), _t(ang), cfg, None, False, 1e-6))
     assert list(solver._cg_graphs.entries) == list(range(1, graphs.KEPT + 1))
     assert solver.cgnr_counts() == {"solves": 1, "iterations": 15}
     solver.reset_cgnr_counts()
     assert solver.cgnr_counts() == {"solves": 0, "iterations": 0}
     assert solver._live[cpu] is live and int(live) == 0
+
+
+class _Rerun:
+    """A captured graph's stand-in: a replay runs the function again and,
+    as a replay runs no Python, leaves the multipliers' count as it was."""
+
+    def __init__(self, fn, static):
+        self.fn, self.static = fn, static
+
+    def replay(self):
+        built = dict(solver.TOEPLITZ_COUNTS)
+        self.fn(*self.static)
+        solver.TOEPLITZ_COUNTS.update(built)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """Graphed solves on the CPU (a graph is captured only on the card):
+    a capture runs its function once, as a capture runs its Python (so the
+    counters see it and take it back), then restores the solve's static
+    tensors, as a capture launches nothing; a replay runs it again.  The
+    solver's counts start at zero, the device counts apart."""
+
+    def capture(fn, static):
+        graph = fn.__self__
+        kept = [t for t in (*graph.state, graph.mult) if t is not None]
+        saved = [t.clone() for t in kept]
+        out = fn(*static)
+        for t, s in zip(kept, saved):
+            t.copy_(s)
+        return _Rerun(fn, static), out
+
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(solver, "_live", {})
+    solver.reset_cgnr_counts()
+    solver.reset_cgnr_graph_counts()
+    solver.reset_cgnr_prologue_counts()
+    solver.reset_toeplitz_counts()
+
+
+@pytest.mark.parametrize("toeplitz", [False, True])
+def test_graphed_solve_replays_its_prologue(stand_in, toeplitz):
+    """A geometry's first solve runs its prologue eagerly, then captures it;
+    each later solve replays it (with ``toeplitz`` the multiplier, then the
+    right side and the state from a static copy of a strided data window)
+    and gives a first solve's bits on the same input.  `TOEPLITZ_COUNTS`
+    still counts one multiplier a solve, and the prologue's counts reset
+    in place."""
+    _, cfg, _, ang, _ = _problem(24, 16)
+    g = torch.Generator().manual_seed(26)
+    series = torch.randn((2, 20, 48), generator=g, dtype=torch.complex64)
+    windows = [series[:, 2 * z: 2 * z + 16] for z in range(2)]
+    angles = [_t(ang), _t(ang) + 0.05]
+    assert not windows[1].is_contiguous()
+    graph = solver._CGGraph(windows[0], angles[0], cfg, None, toeplitz, 1e-6)
+    first = graph.solve(windows[0], angles[0], 4)
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 0, "eager": 1}
+    assert solver.CGNR_GRAPH_COUNTS["captured"] == 1
+    replayed = [graph.solve(windows[1], angles[1], 4), graph.solve(windows[0], angles[0], 4)]
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 2, "eager": 1}
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 3 if toeplitz else 0, "exact": 0}
+    fresh = solver._CGGraph(windows[1], angles[1], cfg, None, toeplitz, 1e-6)
+    want = fresh.solve(windows[1], angles[1], 4)
+    assert not torch.equal(want, first)
+    assert torch.equal(replayed[0], want) and torch.equal(replayed[1], first)
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 2, "eager": 2}
+    assert solver.CGNR_GRAPH_COUNTS["captured"] == 2
+    assert solver.TOEPLITZ_COUNTS == {"nufft": 4 if toeplitz else 0, "exact": 0}
+    counts = solver.CGNR_PROLOGUE_COUNTS
+    solver.reset_cgnr_prologue_counts()
+    assert solver.CGNR_PROLOGUE_COUNTS is counts and counts == {"replayed": 0, "eager": 0}
+
+
+@pytest.mark.parametrize("rtol,iterations", [(1e-6, 10), (0.05, 3)])
+def test_each_rtol_has_its_graph_and_stops_where_the_eager_loop_stops(stand_in, rtol,
+                                                                      iterations):
+    """``rtol`` is in the graphs' key, so a threshold captured for one rtol
+    is never replayed for another; a replayed solve stops where the eager
+    loop stops, bit for bit, after as many iterations."""
+    _, cfg, _, ang, data = _problem(24, 16)
+    d, a = _t(data), _t(ang)
+    keys = {solver._graph_key(d, a, cfg, False, None, r) for r in (1e-6, 0.05, rtol)}
+    assert len(keys) == 2
+    graph = solver._CGGraph(d, a, cfg, None, False, rtol)
+    graph.solve(d, a + 0.05, 10)  # the geometry's first solve captures
+    solver.reset_cgnr_counts()
+    got = graph.solve(d, a, 10)
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
+    assert solver.cgnr_counts() == {"solves": 0, "iterations": iterations}
+    want = solver.cgnr_radial2d(d, a, cfg, niter=10, rtol=rtol, operators="pair")
+    assert solver.cgnr_counts() == {"solves": 1, "iterations": 2 * iterations}
+    assert torch.equal(got, want)

@@ -1,11 +1,13 @@
 """The port's CUDA graphs: one capture, one cache, one take-back of the
-kernels' launch counters.  Its users are the direct frame scheduler
-(`recon.recon_frames`) and the CGNR iteration (`solver.cgnr_radial2d`).
+host's counters.  Its users are the direct frame scheduler
+(`recon.recon_frames`) and the CGNR solve (`solver.cgnr_radial2d`: its
+multiplier, its right side and its iteration).
 
 A capture launches nothing on the card, so what it adds to the launch
-counters (`ops/grid_cuda.LAUNCH_COUNTS`, `ops/degrid_cuda.LAUNCHES`) is
-taken back, and added again at each replay: the counters count what reached
-the card.  Besides the two kernel wrappers, only this module writes them.
+counters (`ops/grid_cuda.LAUNCH_COUNTS`, `ops/degrid_cuda.LAUNCHES`), and
+to any count a user hands over, is taken back, and added again at each
+replay: the counters count what reached the card.  Besides the two kernel
+wrappers, only this module writes the launch counters.
 """
 
 from __future__ import annotations
@@ -44,26 +46,40 @@ def _capture(fn, static: tuple):
     return graph, out
 
 
+def _add(counts: dict, n: dict, sign: int = 1) -> None:
+    for k, v in n.items():
+        counts[k] += sign * v
+
+
 class Chain:
     """``fn(*static)`` captured once on the ``static`` tensors handed over;
     a failed capture raises.  ``replay(*inputs)`` copies each input into its
     static tensor, replays on the current stream and returns the static
-    output, which the next replay overwrites."""
+    output, which the next replay overwrites.  ``counts``: the user's own
+    dicts of host counts that ``fn`` adds to; what the capture added to
+    them is taken back and added again at each replay, as for the launch
+    counters."""
 
-    def __init__(self, fn, *static: torch.Tensor):
+    def __init__(self, fn, *static: torch.Tensor, counts: tuple[dict, ...] = ()):
         self.static = static
-        before = _launches()
+        before, counted = _launches(), [dict(c) for c in counts]
         try:
             self.graph, self.out = _capture(fn, static)
         finally:
             self.launches = {k: n - before[k] for k, n in _launches().items()}
             _add_launches({k: -n for k, n in self.launches.items()})
+            self.counts = [(c, {k: n - b[k] for k, n in c.items()})
+                           for c, b in zip(counts, counted)]
+            for c, n in self.counts:
+                _add(c, n, -1)
 
     def replay(self, *inputs: torch.Tensor):
         for s, x in zip(self.static, inputs):
             s.copy_(x)
         self.graph.replay()
         _add_launches(self.launches)
+        for c, n in self.counts:
+            _add(c, n)
         return self.out
 
 

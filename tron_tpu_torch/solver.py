@@ -21,29 +21,37 @@ false it leaves x, r, p and rs as they are, bit for bit, so a solve that
 has converged stays converged; where it is true it steps by the CG formula.
 
 On the card, with the pair's operators (or the Toeplitz normal operator on
-the pair's right side) and no mesh axis, that step is captured once per
-geometry as a CUDA graph (`_CGGraph`, `graphs.py`) on static vectors and
-replayed ``niter`` times a solve, with no read of the device on the host;
-the cache key holds all the captured chain depends on.  Elsewhere (the
-CPU, the "transpose" mode, a coil- or spoke-sharded solve) the eager loop
-reads the residual on the host before each step and leaves the loop at the
-first false, one synchronisation per iteration.
+the pair's right side) and no mesh axis, a solve is replayed from CUDA
+graphs (`_CGGraph`, `graphs.py`), one set a geometry on static tensors: the
+multiplier (Toeplitz only), the right side with the state CG starts from,
+and the step, replayed ``niter`` times; the host reads nothing of the
+device, and the cache key holds all the captured chains depend on, the
+threshold's ``rtol`` included.  A geometry's first solve runs its prologue
+and first step eagerly, then captures the three; every later one is three
+kinds of replay.  Elsewhere (the CPU, the "transpose" mode, a coil- or
+spoke-sharded solve) the eager loop builds the prologue eagerly, reads the
+residual on the host before each step and leaves the loop at the first
+false, one synchronisation per iteration.
 
-Under a profiler a solve is the span ``tron.cgnr``, its right side A^H W b
-``tron.cgnr_rhs`` and each iteration ``tron.cgnr_iter``: in the eager loop
-the stop test's host read and the step (a solve that stops early opens one
-more, which holds only the test); in a graphed solve one replay of the
-graph (a geometry's first iteration: the step run eagerly, before the
-capture), so such a solve always opens ``niter`` of them, those past
-convergence running a step that changes nothing.  The capture, once per
-geometry after its first solve's first iteration, is ``tron.cgnr_graph``.
-Each build of the Toeplitz multiplier is ``tron.toeplitz_psf``, inside its
-solve's ``tron.cgnr``.  ``cgnr_counts()`` reads the solves and the
+Under a profiler a solve is the span ``tron.cgnr``; its multiplier's build
+(Toeplitz only) ``tron.toeplitz_psf`` and its right side A^H W b with the
+state ``tron.cgnr_rhs``, in that order, each one replay of its graph in a
+graphed solve after a geometry's first; each iteration ``tron.cgnr_iter``:
+in the eager loop the stop test's host read and the step (a solve that
+stops early opens one more, which holds only the test); in a graphed solve
+one replay of the step (a geometry's first iteration: the step run
+eagerly, before the capture), so such a solve always opens ``niter`` of
+them, those past convergence running a step that changes nothing.  The
+captures, once per geometry after its first solve's first iteration, are
+``tron.cgnr_graph``.  ``cgnr_counts()`` reads the solves and the
 iterations they ran (a graphed solve's are counted in one int64 on its
 device, which the captured step adds to); ``CGNR_GRAPH_COUNTS`` counts the
-graphs captured, the solves replayed from one and the solves run eagerly;
-``TOEPLITZ_COUNTS`` the multipliers built by each method ("nufft", the
-gridded build, or "exact", the DTFT sum it falls to off gridos 2).
+geometries captured, the solves replayed and the solves run by the eager
+loop; ``CGNR_PROLOGUE_COUNTS`` the solves whose prologue was replayed and
+those whose prologue ran eagerly (a geometry's first, and every eager
+loop's); ``TOEPLITZ_COUNTS`` the multipliers built by each method
+("nufft", the gridded build, or "exact", the DTFT sum it falls to off
+gridos 2), a replayed build included.
 
 Across ranks (`parallel/`): with coils sharded the three inner products of an
 iteration are summed over each axis of ``reduce_axes``; with spokes sharded
@@ -71,6 +79,9 @@ from tron_tpu_torch.tracing import span
 _cg_graphs = graphs.Cache()
 CGNR_GRAPH_COUNTS = _cg_graphs.counts
 reset_cgnr_graph_counts = _cg_graphs.reset_counts
+# solves whose prologue (multiplier, right side, state) replayed its graphs
+# and solves that ran it eagerly
+CGNR_PROLOGUE_COUNTS = {"replayed": 0, "eager": 0}
 _counts = {"solves": 0, "iterations": 0}
 TOEPLITZ_COUNTS = {"nufft": 0, "exact": 0}
 # the live iterations of graphed solves, one int64 a device
@@ -90,6 +101,10 @@ def reset_cgnr_counts() -> None:
         n.zero_()
 
 
+def reset_cgnr_prologue_counts() -> None:
+    CGNR_PROLOGUE_COUNTS.update(replayed=0, eager=0)
+
+
 def reset_toeplitz_counts() -> None:
     TOEPLITZ_COUNTS.update(nufft=0, exact=0)
 
@@ -101,7 +116,9 @@ def _weights(
     row, or with a 0/1 ``sample_mask`` per spoke the (npe_local, nro) table
     that also weights a shard's padded spokes out."""
     w = sdc_weights(cfg, nro, npe, device).clone()
-    w[0] = 0
+    # a fill on the device: ``w[0] = 0`` would copy a host scalar, which a
+    # CUDA graph's capture refuses (the multiplier's build is captured)
+    w[0].fill_(0)
     if sample_mask is not None:
         w = sample_mask.to(w.dtype)[:, None] * w
     return w
@@ -299,23 +316,29 @@ def _cg_step(x, r, p, rs, thresh, normal, inner) -> torch.Tensor:
 
 
 class _CGGraph:
-    """One geometry's CG iteration captured as a CUDA graph.
+    """One geometry's CG solve as three CUDA graphs: the multiplier (with
+    ``toeplitz``), the right side with the state CG starts from, and the
+    iteration.
 
     The pair's operators are built once on a static angle buffer and weight
     row (with ``toeplitz``, the normal operator reads a static multiplier
-    that each solve recomputes from its angles).  Each solve runs its right
-    side eagerly and sets the static x, r, p, rs and thresh from it.  The
-    geometry's first solve runs its first iteration eagerly, which warms
-    cuFFT's plans, the kernels and their cached tables, so the capture that
-    follows copies nothing from the host; the capture is one ``_cg_step``
-    on the static state, which also adds the live iteration to the device's
-    count, and every later iteration is a replay."""
+    that each solve rebuilds from its angles).  The geometry's first solve
+    runs its prologue (the multiplier, A^H W d, the state) and its first
+    iteration eagerly, which warms cuFFT's plans, the kernels and their
+    cached tables, so the captures that follow copy nothing from the host;
+    it then captures the iteration (one ``_cg_step`` on the static state,
+    which also adds the live iteration to the device's count) and the
+    prologue's two chains, launching nothing, and replays the iteration
+    for the rest.  Every later solve copies its data into a static buffer
+    and replays the three: no value of the prologue comes from the host,
+    and the ``rtol`` its threshold bakes in is in the cache's key."""
 
-    def __init__(self, data, angles, cfg, npe_total, toeplitz):
+    def __init__(self, data, angles, cfg, npe_total, toeplitz, rtol):
         npe, nro = data.shape[-2:]
         n = nro // 2
-        self.cfg, self.nro, self.npe_total = cfg, nro, npe_total
+        self.cfg, self.nro, self.npe_total, self.rtol = cfg, nro, npe_total, rtol
         self.angles = angles.clone()
+        self.data = torch.empty_like(data, memory_format=torch.contiguous_format)
         w = _weights(cfg, nro, npe_total or npe, data.device).to(data.dtype)
         img_shape = tuple(data.shape[:-2]) + (n, n)
         self.AHW, self.normal = _operators(self.angles, cfg, nro, img_shape, w, "pair")
@@ -323,45 +346,70 @@ class _CGGraph:
         if toeplitz:
             self.mult = torch.zeros((2 * n, 2 * n), dtype=torch.complex64, device=data.device)
             self.normal = lambda x: toeplitz_apply(x, self.mult)
-        self.chain = self.state = None
+        self.psf = self.rhs = self.step = self.state = None
+
+    def _psf(self, angles) -> None:
+        self.mult.copy_(toeplitz_fourier_kernel(angles, self.cfg, self.nro,
+                                                npe_total=self.npe_total))
+
+    def _rhs(self, data) -> None:
+        """b = A^H W d, and the state CG starts from: x 0, r and p b, rs and
+        the stop threshold from <b, b>."""
+        b = self.AHW(data)
+        bb = _inner(b, b)
+        if self.state is None:
+            if b.device not in _live:
+                _live[b.device] = torch.zeros((), dtype=torch.int64, device=b.device)
+            vecs = tuple(torch.zeros_like(b) for _ in range(3))
+            self.state = (*vecs, torch.zeros_like(bb), torch.zeros_like(bb), _live[b.device])
+        x, r, p, rs, thresh, _ = self.state
+        thresh.copy_(self.rtol * self.rtol * bb)
+        x.zero_()
+        r.copy_(b)
+        p.copy_(b)
+        rs.copy_(bb)
 
     def _step(self, x, r, p, rs, thresh, count) -> None:
         count.add_(_cg_step(x, r, p, rs, thresh, self.normal, _inner))
 
-    def solve(self, data, angles, rtol: float, niter: int) -> torch.Tensor:
+    def solve(self, data, angles, niter: int) -> torch.Tensor:
         self.angles.copy_(angles)
+        first = self.step is None
         with span("tron.cgnr"):
             if self.mult is not None:
                 with span("tron.toeplitz_psf"):
-                    self.mult.copy_(toeplitz_fourier_kernel(self.angles, self.cfg, self.nro,
-                                                            npe_total=self.npe_total))
+                    if first:
+                        self._psf(self.angles)
+                    else:
+                        self.psf.replay()
             with span("tron.cgnr_rhs"):
-                b = self.AHW(data)
-            bb = _inner(b, b)
-            if self.state is None:
-                if b.device not in _live:
-                    _live[b.device] = torch.zeros((), dtype=torch.int64, device=b.device)
-                vecs = tuple(torch.zeros_like(b) for _ in range(3))
-                self.state = (*vecs, torch.zeros_like(bb), torch.zeros_like(bb), _live[b.device])
-            x, r, p, rs, thresh, _ = self.state
-            thresh.copy_(rtol * rtol * bb)
-            x.zero_()
-            r.copy_(b)
-            p.copy_(b)
-            rs.copy_(bb)
-            done = 0
-            if self.chain is None:
+                if first:
+                    self._rhs(data)
+                else:
+                    self.rhs.replay(data)
+            if first:
                 with span("tron.cgnr_iter"):
                     self._step(*self.state)
                 with span("tron.cgnr_graph"):
-                    self.chain = graphs.Chain(self._step, *self.state)
+                    self.step = graphs.Chain(self._step, *self.state)
+                    if self.mult is not None:
+                        self.psf = graphs.Chain(self._psf, self.angles,
+                                                counts=(TOEPLITZ_COUNTS,))
+                    self.rhs = graphs.Chain(self._rhs, self.data)
                 CGNR_GRAPH_COUNTS["captured"] += 1
-                done = 1
-            for _ in range(done, niter):
+            CGNR_PROLOGUE_COUNTS["eager" if first else "replayed"] += 1
+            for _ in range(first, niter):
                 with span("tron.cgnr_iter"):
-                    self.chain.replay()
+                    self.step.replay()
             # the static x is overwritten by the next solve
-            return x.clone()
+            return self.state[0].clone()
+
+
+def _graph_key(data, angles, cfg, toeplitz, npe_total, rtol) -> tuple:
+    """The cache key of a graphed solve: all that its captured chains bake
+    in, the threshold's ``rtol`` included."""
+    return (data.device, tuple(data.shape), data.dtype, angles.dtype, cfg, cfg.kernel_tuning(),
+            toeplitz, npe_total, rtol)
 
 
 def cgnr_radial2d(
@@ -391,18 +439,18 @@ def cgnr_radial2d(
     one shard's spokes, the weights come from the frame's ``npe_total``, and
     ``sample_mask`` (0/1 per local spoke) weights the shard's padding out.
 
-    On a CUDA device with the pair's adjoint and no mesh axis, the
-    iterations replay a CUDA graph (the module's docstring)."""
+    On a CUDA device with the pair's adjoint and no mesh axis, the solve
+    replays CUDA graphs: its prologue and its iterations (the module's
+    docstring)."""
     _check_axes(reduce_axes, spoke_axis)
     niter = cfg.niter if niter is None else niter
     mode, toeplitz = _resolve(operators, cfg, data.device)
     if (data.is_cuda and mode == "pair" and niter > 0 and not reduce_axes
             and spoke_axis is None and sample_mask is None):
         # a miss makes the graph; its first solve captures
-        key = (data.device, tuple(data.shape), data.dtype, angles.dtype, cfg,
-               cfg.kernel_tuning(), toeplitz, npe_total)
-        graph = _cg_graphs.get(key, lambda: _CGGraph(data, angles, cfg, npe_total, toeplitz))
-        x = graph.solve(data, angles, rtol, niter)
+        key = _graph_key(data, angles, cfg, toeplitz, npe_total, rtol)
+        graph = _cg_graphs.get(key, lambda: _CGGraph(data, angles, cfg, npe_total, toeplitz, rtol))
+        x = graph.solve(data, angles, niter)
         _counts["solves"] += 1
         CGNR_GRAPH_COUNTS["replayed"] += 1
         return x
@@ -436,6 +484,7 @@ def cgnr_radial2d(
     _counts["solves"] += 1
     _counts["iterations"] += k
     CGNR_GRAPH_COUNTS["eager"] += 1
+    CGNR_PROLOGUE_COUNTS["eager"] += 1
     return x
 
 

@@ -21,17 +21,19 @@ the port records:
 - ``tron.readback``: the images' copy to the host, the queue's drain
   included;
 - ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
-  its ``tron.frame``; ``tron.cgnr_rhs``: its right side A^H W d;
-  ``tron.cgnr_iter``: one iteration: in the eager loop its stop test's read
-  of the residual on the host and its step, in a graphed solve (on the
-  card) one replay of the captured step (a geometry's first iteration: the
-  step run eagerly before the capture), ``niter`` of them a solve whatever
-  the stop test finds; ``tron.cgnr_graph``: the capture of one CG step as
-  a CUDA graph (once per geometry, inside that solve's ``tron.cgnr``);
-  ``tron.toeplitz_psf``: one build of a solve's Toeplitz multiplier
-  (`solver.toeplitz_fourier_kernel`: the weights gridded at the doubled
-  geometry, the epilogue and the FFT), inside its ``tron.cgnr``, before
-  the right side;
+  its ``tron.frame``; ``tron.toeplitz_psf``: one build of a solve's
+  Toeplitz multiplier (`solver.toeplitz_fourier_kernel`: the weights
+  gridded at the doubled geometry, the epilogue and the FFT), inside its
+  ``tron.cgnr``, before the right side; ``tron.cgnr_rhs``: its right side
+  A^H W d and the state CG starts from; in a graphed solve (on the card)
+  after a geometry's first, each of these two is one replay's enqueue on
+  the card; ``tron.cgnr_iter``: one iteration: in the eager loop its stop
+  test's read of the residual on the host and its step, in a graphed
+  solve one replay of the captured step (a geometry's first iteration:
+  the step run eagerly before the capture), ``niter`` of them a solve
+  whatever the stop test finds; ``tron.cgnr_graph``: the captures of a
+  geometry's CG step, multiplier and right side as CUDA graphs (once per
+  geometry, inside that solve's ``tron.cgnr``);
 - ``tron.<kernel>`` for each gridding kernel (`ops/grid_cuda.KERNELS`):
   one gridding wrapper call, routed to that kernel or, on the CPU, to its
   plain version;
