@@ -1036,3 +1036,57 @@ def test_series_relaid_on_the_card_is_the_host_relayout(dev, monkeypatch, order)
     assert got.shape == want.shape == (956, 1, 256, 256)
     np.testing.assert_array_equal(got, want)
     assert peak <= want_peak + x.nbytes, (peak, want_peak, x.nbytes)
+
+
+# -- the telescoping scheduler at whole-body widths ----------------------------
+
+
+@pytest.mark.gpu
+def test_incremental_series_on_the_card_against_the_reference(dev):
+    """`recon_radial2d --incremental` host to host at whole-body widths (6
+    coils, 512 readouts, frames of 204 spokes sliding by 21, bfloat16) over
+    32 frames: every frame within the benchmark cell's limit of the plain
+    reference, which grids each window from scratch; one seeded frame and
+    31 telescoped; B1 launched once a frame; under a profiler 31
+    ``tron.incremental_step`` spans and one B1 contraction a frame."""
+    import json
+    from pathlib import Path
+
+    from benchmark.reference import incremental as reference
+    from tron_tpu_torch import recon
+    from tron_tpu_torch.config import ReconConfig
+
+    nz = 32
+    settings = {"adjoint": True, "golden_angle": True, "data_undersamp": 0.4,
+                "prof_slide": 21, "gridos": 2.0, "kernwidth": 2.0, "skip_angles": 0,
+                "incremental": True}
+    cfg = ReconConfig(**settings, matmul_dtype="bfloat16")
+    x = _host_complex(27, (6, 1, 512, 204 + 21 * (nz - 1)))
+    assert cfg.frame_geometry(512, x.shape[-1]) == (204, 21, nz)
+    limits = Path(__file__).resolve().parents[1] / "benchmark" / "limits"
+    limit = json.loads((limits / "whole_body_incremental.incremental.json").read_text())
+
+    recon.reset_incremental_counts()
+    grid_cuda.reset_launches()
+    got = recon.recon_radial2d(x, cfg, device=dev)[:, 0]
+    assert recon.INCREMENTAL_COUNTS == {"seeded": 1, "telescoped": nz - 1, "direct": 0}
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == nz
+
+    want = reference.Series(x, settings, dev).frames(list(range(nz)))
+    g = torch.from_numpy(got).to(dev)
+    err = (torch.linalg.vector_norm(g - want, dim=(1, 2))
+           / torch.linalg.vector_norm(want, dim=(1, 2)))
+    assert float(err.max()) <= limit["frame_rel_err"]["limit"], err
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = recon.recon_radial2d(x, cfg, device=dev)[:, 0]
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() != cuda]
+    kernels = [e.name() for e in events if e.device_type() == cuda]
+    assert host.count("tron.incremental_step") == nz - 1
+    assert sum("grid_tile_contract_kernel" in n for n in kernels) == nz
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 2 * nz
+    assert recon.INCREMENTAL_COUNTS == {"seeded": 2, "telescoped": 2 * (nz - 1), "direct": 0}
+    np.testing.assert_array_equal(again, got)

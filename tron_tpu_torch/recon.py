@@ -23,7 +23,11 @@ An in-memory input goes to the device in the memory order it has
 
 ``FRAME_GRAPH_COUNTS`` counts the direct scheduler's graph captures, its
 frames replayed from a graph and its frames run eagerly;
-``reset_frame_graph_counts()`` zeroes them.
+``reset_frame_graph_counts()`` zeroes them.  ``INCREMENTAL_COUNTS`` counts
+the telescoping scheduler's frames gridded whole (``seeded``, one a scan)
+and advanced by a delta (``telescoped``), and the in-memory series that
+asked for it and took the direct path (``direct``);
+``reset_incremental_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -61,11 +65,17 @@ FRAME_GRAPH_COUNTS = _frame_graphs.counts
 reset_frame_graph_counts = _frame_graphs.reset_counts
 
 UPLOAD_COUNTS = {"as_is": 0, "host_copy": 0}
+INCREMENTAL_COUNTS = {"seeded": 0, "telescoped": 0, "direct": 0}
 
 
 def reset_upload_counts() -> None:
     for key in UPLOAD_COUNTS:
         UPLOAD_COUNTS[key] = 0
+
+
+def reset_incremental_counts() -> None:
+    for key in INCREMENTAL_COUNTS:
+        INCREMENTAL_COUNTS[key] = 0
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -342,18 +352,22 @@ def incremental_scan(
         img0 = frame_image(kg)
         out = img0.new_empty((nframes,) + tuple(img0.shape))
         out[0] = img0
+    INCREMENTAL_COUNTS["seeded"] += 1
     # every gridding call scales by 1/(nxos * npe_of_call); deltas must carry
     # the frame scale 1/(nxos * work) instead
     corr = (2.0 * slide) / work
     for i in range(1, nframes):
         with span("tron.frame"):
-            pe0 = (z0 + i - 1) * slide
-            win = torch.cat([-window(pe0, slide), window(pe0 + work, slide)], dim=spoke_axis)
-            ang = torch.cat([angles_of(pe0, slide), angles_of(pe0 + work, slide)])
-            # the carried grid is owned here (a fresh gridder output), so it
-            # is updated in place where the JAX scan carries a new array
-            kg += gridw(win, ang) * corr
+            with span("tron.incremental_step"):
+                pe0 = (z0 + i - 1) * slide
+                win = torch.cat([-window(pe0, slide), window(pe0 + work, slide)],
+                                dim=spoke_axis)
+                ang = torch.cat([angles_of(pe0, slide), angles_of(pe0 + work, slide)])
+                # the carried grid is owned here (a fresh gridder output), so
+                # it is updated in place where the JAX scan carries a new array
+                kg += gridw(win, ang) * corr
             out[i] = frame_image(kg)
+    INCREMENTAL_COUNTS["telescoped"] += nframes - 1
     return out
 
 
@@ -398,11 +412,10 @@ def recon_radial2d(
         d = torch.stack([coil_compress(dc[t], cfg.coil_compress) for t in range(nt)])
         nc = cfg.coil_compress
         d = d.reshape(nt * nc, npe1, nro)
-    frames_fn = (
-        recon_frames_incremental
-        if cfg.incremental and incremental_applicable(cfg, work, slide, nz)
-        else recon_frames
-    )
+    incremental = cfg.incremental and incremental_applicable(cfg, work, slide, nz)
+    if cfg.incremental and not incremental:
+        INCREMENTAL_COUNTS["direct"] += nt
+    frames_fn = recon_frames_incremental if incremental else recon_frames
     if nt > 1:
         # combine coils per repetition
         d = d.reshape(nt, nc, npe1, nro)

@@ -18,6 +18,12 @@ the port records:
   included;
 - ``tron.frame_graph``: the capture of one frame's device chain as a CUDA
   graph (`recon.recon_frames`, once per geometry);
+- ``tron.incremental_step``: one telescoped frame's delta
+  (`recon.incremental_scan`): the leaving (negated) and entering spokes'
+  planes and angles, their gridding and the scaled add into the carried
+  grid, inside that frame's ``tron.frame`` (its epilogue, combine and
+  write follow outside the step); a scan's first frame, gridded whole,
+  opens none;
 - ``tron.readback``: the images' copy to the host, the queue's drain
   included;
 - ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
@@ -53,6 +59,7 @@ SPANS = (
     "tron.prep",
     "tron.frame",
     "tron.frame_graph",
+    "tron.incremental_step",
     "tron.readback",
     "tron.cgnr",
     "tron.cgnr_rhs",
