@@ -1090,3 +1090,62 @@ def test_incremental_series_on_the_card_against_the_reference(dev):
     assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 2 * nz
     assert recon.INCREMENTAL_COUNTS == {"seeded": 2, "telescoped": 2 * (nz - 1), "direct": 0}
     np.testing.assert_array_equal(again, got)
+
+
+@pytest.mark.gpu
+def test_incremental_graph_replays_the_eager_scan(dev, monkeypatch):
+    """`recon_radial2d --incremental` on the card at whole-body widths (6
+    coils, 512 readouts, frames of 204 spokes sliding by 21, bfloat16) over
+    48 frames: frames 0 and 1 run eagerly, one capture, then a replay of
+    the step's graph a frame, bitwise the same scan sent down its eager
+    branch.  A second series in the process captures nothing, reseeds the
+    graph's carried grid and gives the first's bits; under a profiler it
+    opens ``tron.incremental_step`` nz - 1 times, launches one graph a
+    replayed frame and still one B1 contraction a frame.  A series of other
+    samples, at another offset, shares the graph and is its own eager
+    scan."""
+    from tron_tpu_torch import recon
+    from tron_tpu_torch.config import ReconConfig
+
+    nz = 48
+    cfg = ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
+                      skip_angles=0, incremental=True, matmul_dtype="bfloat16")
+    x = _host_complex(28, (6, 1, 512, 204 + 21 * (nz - 1)))
+    y = _host_complex(29, x.shape)
+    assert cfg.frame_geometry(512, x.shape[-1]) == (204, 21, nz)
+    recon._incremental_graphs.entries.clear()
+    recon.reset_incremental_graph_counts()
+    grid_cuda.reset_launches()
+
+    got = recon.recon_radial2d(x, cfg, device=dev)
+    assert recon.INCREMENTAL_GRAPH_COUNTS == {"captured": 1, "replayed": nz - 2, "eager": 2}
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == nz
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        again = recon.recon_radial2d(x, cfg, device=dev)
+    assert recon.INCREMENTAL_GRAPH_COUNTS == {"captured": 1, "replayed": 2 * (nz - 2),
+                                              "eager": 4}
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() != cuda]
+    kernels = [e.name() for e in events if e.device_type() == cuda]
+    assert host.count("tron.incremental_step") == nz - 1
+    assert host.count("tron.incremental_graph") == 0
+    assert host.count("cudaGraphLaunch") == nz - 2
+    assert sum("grid_tile_contract_kernel" in n for n in kernels) == nz
+    assert grid_cuda.LAUNCH_COUNTS["grid_radial2d"] == 2 * nz
+
+    d = torch.from_numpy(y[:, 0].transpose(0, 2, 1).copy()).to(dev)   # (nc, npe1, nro)
+    other = recon.recon_frames_incremental(d, cfg, 204, 21, nz, 19000)
+    assert recon.INCREMENTAL_GRAPH_COUNTS["captured"] == 1
+    assert len(recon._incremental_graphs.entries) == 1
+
+    monkeypatch.setattr(recon, "_graphed", lambda t, coil_axis: False)
+    want = recon.recon_radial2d(x, cfg, device=dev)
+    want_other = recon.recon_frames_incremental(d, cfg, 204, 21, nz, 19000)
+    assert recon.INCREMENTAL_GRAPH_COUNTS["captured"] == 1
+    assert np.isfinite(want).all() and torch.isfinite(torch.view_as_real(want_other)).all()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(again, want)
+    assert torch.equal(other, want_other)

@@ -1,7 +1,10 @@
 """The port's CUDA graphs: one capture, one cache, one take-back of the
 host's counters.  Its users are the direct frame scheduler
-(`recon.recon_frames`) and the CGNR solve (`solver.cgnr_radial2d`: its
-multiplier, its right side and its iteration).
+(`recon.recon_frames`), the telescoping one (`recon.incremental_scan`:
+a frame's step, epilogue and combine, with the carried grid a static
+tensor that no replay copies into) and the CGNR solve
+(`solver.cgnr_radial2d`: its multiplier, its right side and its
+iteration).
 
 A capture launches nothing on the card, so what it adds to the launch
 counters (`ops/grid_cuda.LAUNCH_COUNTS`, `ops/degrid_cuda.LAUNCHES`), and
@@ -54,8 +57,9 @@ def _add(counts: dict, n: dict, sign: int = 1) -> None:
 class Chain:
     """``fn(*static)`` captured once on the ``static`` tensors handed over;
     a failed capture raises.  ``replay(*inputs)`` copies each input into its
-    static tensor, replays on the current stream and returns the static
-    output, which the next replay overwrites.  ``counts``: the user's own
+    static tensor (the first ``len(inputs)``; the rest are the chain's own
+    state), replays on the current stream and returns the static output,
+    which the next replay overwrites.  ``counts``: the user's own
     dicts of host counts that ``fn`` adds to; what the capture added to
     them is taken back and added again at each replay, as for the launch
     counters."""

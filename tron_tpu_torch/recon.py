@@ -4,10 +4,14 @@ the forward operator over image stacks, and the 3-D stack-of-stars (`-3`)
 recon, in memory and streamed.
 
 Frames run in order in a Python loop, each written into one preallocated
-output (the JAX package's ``lax.map`` / ``lax.scan``).  On the card the
-direct scheduler's hoisted path replays one CUDA graph a frame: the frame's
-device chain is captured once per geometry (`graphs.py`) and each frame
-copies its window and angles into the graph's static inputs.  The frame
+output (the JAX package's ``lax.map`` / ``lax.scan``).  On the card both
+frame schedulers replay one CUDA graph a frame (`graphs.py`), each from a
+cache of its own: the direct scheduler's hoisted path captures a frame's
+device chain once per geometry, and each frame copies its window and
+angles into the graph's static inputs; the telescoping scheduler captures
+its step (the signed delta, the scaled add into the carried grid, which
+the graph owns, the epilogue and the combine), and each frame copies the
+leaving and entering spokes and their row of the angle table.  The frame
 schedulers take a ``coil_axis`` (a ``parallel.distributed.MeshAxis``) when
 the coils they are given are one shard of a mesh's 'coil' axis: the coil
 combine and the CGNR inner products then finish over that axis
@@ -23,7 +27,9 @@ An in-memory input goes to the device in the memory order it has
 
 ``FRAME_GRAPH_COUNTS`` counts the direct scheduler's graph captures, its
 frames replayed from a graph and its frames run eagerly;
-``reset_frame_graph_counts()`` zeroes them.  ``INCREMENTAL_COUNTS`` counts
+``reset_frame_graph_counts()`` zeroes them.  ``INCREMENTAL_GRAPH_COUNTS``
+and ``reset_incremental_graph_counts()`` do the same for the telescoping
+scheduler's frames.  ``INCREMENTAL_COUNTS`` counts
 the telescoping scheduler's frames gridded whole (``seeded``, one a scan)
 and advanced by a delta (``telescoped``), and the in-memory series that
 asked for it and took the direct path (``direct``);
@@ -63,6 +69,9 @@ from tron_tpu_torch.trajectory import spoke_angle_table, spoke_angles
 _frame_graphs = graphs.Cache()
 FRAME_GRAPH_COUNTS = _frame_graphs.counts
 reset_frame_graph_counts = _frame_graphs.reset_counts
+_incremental_graphs = graphs.Cache()
+INCREMENTAL_GRAPH_COUNTS = _incremental_graphs.counts
+reset_incremental_graph_counts = _incremental_graphs.reset_counts
 
 UPLOAD_COUNTS = {"as_is": 0, "host_copy": 0}
 INCREMENTAL_COUNTS = {"seeded": 0, "telescoped": 0, "direct": 0}
@@ -222,8 +231,7 @@ def recon_frames(
         def one(z):
             return frame(window(z), angles[z])
 
-        # a sharded coil axis puts a collective inside the combine
-        if planes.is_cuda and (coil_axis is None or coil_axis.size == 1):
+        if _graphed(planes, coil_axis):
 
             def replay():
                 # after frame 0 has warmed cuFFT's plan and the kernels'
@@ -253,6 +261,13 @@ def _capture_frame(frame, win: torch.Tensor, ang: torch.Tensor) -> graphs.Chain:
         chain = graphs.Chain(frame, win.clone(), ang.clone())
     FRAME_GRAPH_COUNTS["captured"] += 1
     return chain
+
+
+def _graphed(t: torch.Tensor, coil_axis: MeshAxis | None) -> bool:
+    """True where a frame scheduler replays CUDA graphs: its samples on the
+    card and no coil axis sharded (a sharded axis puts a collective inside
+    the combine)."""
+    return t.is_cuda and (coil_axis is None or coil_axis.size == 1)
 
 
 def incremental_applicable(cfg: ReconConfig, work: int, slide: int, nz: int) -> bool:
@@ -300,7 +315,13 @@ def recon_frames_incremental(
         if on_planes:
             _kernel_backend(cfg, data.device)
             src = grid_cuda.to_sample_planes(src, nxos)   # (npe1, nxos, 2C)
+        # every spoke the scan touches, in one table: a slice of it is
+        # bitwise the slice's own spoke_angles call, since pe + skip is an
+        # exact float32 integer (below 2**24) and the rest is elementwise
+        table = spoke_angles(npe1work + (nz - 1) * prof_slide, scheme,
+                             cfg.skip_angles + skip0, device=data.device)
 
+    graph_key = None
     if on_planes:
         spoke_axis = 0
 
@@ -311,6 +332,13 @@ def recon_frames_incremental(
             return grid_cuda.grid_radial2d_planes(
                 win, angles, nxos, cfg.kernwidth, beta, matmul_dtype=mm_class, tuning=tuning,
             )
+
+        if _graphed(src, coil_axis):
+            # all the step's graph bakes in; skip0 and the frame offsets
+            # enter only through its inputs, so a streamed recon's blocks
+            # share one graph
+            delta = (prof_slide,) + tuple(src.shape[1:])
+            graph_key = (src.device, delta, src.dtype, cfg, tuning, npe1work, prof_slide)
 
     else:
         spoke_axis = -2
@@ -323,32 +351,52 @@ def recon_frames_incremental(
         return src.narrow(spoke_axis, pe0, m)
 
     def angles_of(pe0, m):
-        return spoke_angles(m, scheme, cfg.skip_angles + skip0 + pe0, device=data.device)
+        return table.narrow(0, pe0, m)
 
     def frame_image(kg):
         return _combine(_adjoint_epilogue(kg, n, cfg, beta), cfg, coil_axis)
 
     return incremental_scan(
         window, angles_of, gridw, frame_image, npe1work, prof_slide, nz,
-        spoke_axis=spoke_axis,
+        spoke_axis=spoke_axis, graph_key=graph_key,
     )
+
+
+def delta_angle_rows(spokes: torch.Tensor, work: int, slide: int, nsteps: int) -> torch.Tensor:
+    """The angles of each telescoped step's spokes, (nsteps, 2*slide): row
+    i holds the ``slide`` spokes that leave frame i's window, then the
+    ``slide`` that enter frame i+1's.  ``spokes``: the angles of every
+    spoke from the first frame's first, at least work + nsteps*slide."""
+    leave = spokes[: nsteps * slide].reshape(nsteps, slide)
+    enter = spokes[work : work + nsteps * slide].reshape(nsteps, slide)
+    return torch.cat([leave, enter], dim=1)
 
 
 def incremental_scan(
     window, angles_of, gridw, frame_image,
     work: int, slide: int, nframes: int,
-    z0: int = 0, spoke_axis: int = 0,
+    z0: int = 0, spoke_axis: int = 0, graph_key=None,
 ) -> torch.Tensor:
     """The telescoping core: frame_image outputs for frames z0 ..
     z0 + nframes - 1.
 
     ``window(pe0, m)`` slices m spokes at global spoke offset pe0;
-    ``angles_of(pe0, m)`` gives their angles; ``gridw(win, angles)`` grids
-    them with its own 1/(nxos*m) scale, which deltas re-scale to the frame's
-    1/(nxos*work) here; ``frame_image(kgrid)`` runs epilogue + combine.
+    ``angles_of(pe0, m)`` gives their angles, called once for every spoke
+    the scan touches; ``gridw(win, angles)`` grids them with its own
+    1/(nxos*m) scale, which deltas re-scale to the frame's 1/(nxos*work)
+    here; ``frame_image(kgrid)`` runs epilogue + combine.
+
+    With ``graph_key`` (on the card: the key of all that ``gridw`` and
+    ``frame_image`` bake in) frames 0 and 1 run eagerly, frame 1 the first
+    step at its width, and every later frame is one replay of the step's
+    CUDA graph (`_incremental_graphs`), its carried grid seeded from frame
+    1's.
     """
+    pe_first = z0 * slide
     with span("tron.frame"):
-        kg = gridw(window(z0 * slide, work), angles_of(z0 * slide, work))
+        spokes = angles_of(pe_first, work + (nframes - 1) * slide)
+        deltas = delta_angle_rows(spokes, work, slide, nframes - 1)
+        kg = gridw(window(pe_first, work), spokes[:work])
         img0 = frame_image(kg)
         out = img0.new_empty((nframes,) + tuple(img0.shape))
         out[0] = img0
@@ -356,19 +404,52 @@ def incremental_scan(
     # every gridding call scales by 1/(nxos * npe_of_call); deltas must carry
     # the frame scale 1/(nxos * work) instead
     corr = (2.0 * slide) / work
+
+    def advance(kg, leave, enter, ang):
+        # the carried grid is owned here (a fresh gridder output, or the
+        # graph's static buffer), so it is updated in place where the JAX
+        # scan carries a new array
+        kg += gridw(torch.cat([-leave, enter], dim=spoke_axis), ang) * corr
+
+    def step(leave, enter, ang, kg):
+        advance(kg, leave, enter, ang)
+        return frame_image(kg)
+
+    def inputs(i):
+        """Frame i's leaving and entering spokes and their angles."""
+        pe0 = pe_first + (i - 1) * slide
+        return window(pe0, slide), window(pe0 + work, slide), deltas[i - 1]
+
+    eager = nframes if graph_key is None else min(nframes, 2)
+    chain = None
     for i in range(1, nframes):
         with span("tron.frame"):
+            if i < eager:
+                with span("tron.incremental_step"):
+                    advance(kg, *inputs(i))
+                out[i] = frame_image(kg)
+                continue
+            if chain is None:
+                chain = _incremental_graphs.get(graph_key,
+                                                lambda: _capture_step(step, inputs(i), kg))
+                chain.static[-1].copy_(kg)
             with span("tron.incremental_step"):
-                pe0 = (z0 + i - 1) * slide
-                win = torch.cat([-window(pe0, slide), window(pe0 + work, slide)],
-                                dim=spoke_axis)
-                ang = torch.cat([angles_of(pe0, slide), angles_of(pe0 + work, slide)])
-                # the carried grid is owned here (a fresh gridder output), so
-                # it is updated in place where the JAX scan carries a new array
-                kg += gridw(win, ang) * corr
-            out[i] = frame_image(kg)
+                chain.replay(*inputs(i))
+            out[i] = chain.out
     INCREMENTAL_COUNTS["telescoped"] += nframes - 1
+    INCREMENTAL_GRAPH_COUNTS["eager"] += eager
+    INCREMENTAL_GRAPH_COUNTS["replayed"] += nframes - eager
     return out
+
+
+def _capture_step(step, inputs: tuple, kg: torch.Tensor) -> graphs.Chain:
+    """The telescoped frame's chain on static copies of its inputs and of
+    the carried grid, which the chain owns: a replay copies the inputs
+    only, and advances the grid in place."""
+    with span("tron.incremental_graph"):
+        chain = graphs.Chain(step, *(t.clone() for t in inputs), kg.clone())
+    INCREMENTAL_GRAPH_COUNTS["captured"] += 1
+    return chain
 
 
 def recon_radial2d(

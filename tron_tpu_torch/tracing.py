@@ -19,11 +19,18 @@ the port records:
 - ``tron.frame_graph``: the capture of one frame's device chain as a CUDA
   graph (`recon.recon_frames`, once per geometry);
 - ``tron.incremental_step``: one telescoped frame's delta
-  (`recon.incremental_scan`): the leaving (negated) and entering spokes'
-  planes and angles, their gridding and the scaled add into the carried
-  grid, inside that frame's ``tron.frame`` (its epilogue, combine and
-  write follow outside the step); a scan's first frame, gridded whole,
-  opens none;
+  (`recon.incremental_scan`), inside that frame's ``tron.frame``; a
+  scan's first frame, gridded whole, opens none.  Run eagerly (the CPU,
+  and a scan's second frame on the card): the leaving (negated) and
+  entering spokes' planes and their row of the angle table, their
+  gridding and the scaled add into the carried grid, with the epilogue,
+  combine and write after it, outside the step.  Replayed (every later
+  frame on the card): the copies of those spokes and their angles into
+  the graph's static inputs and the graph's launch, which runs the
+  epilogue and combine too; the write follows outside the step;
+- ``tron.incremental_graph``: the capture of the telescoped frame's
+  device chain as a CUDA graph (`recon.incremental_scan`, once per
+  geometry);
 - ``tron.readback``: the images' copy to the host, the queue's drain
   included;
 - ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
@@ -60,6 +67,7 @@ SPANS = (
     "tron.frame",
     "tron.frame_graph",
     "tron.incremental_step",
+    "tron.incremental_graph",
     "tron.readback",
     "tron.cgnr",
     "tron.cgnr_rhs",
