@@ -972,6 +972,56 @@ def test_toeplitz_graph_builds_its_multiplier_inside_the_solve(dev):
     assert solver.TOEPLITZ_COUNTS == {"nufft": 3, "exact": 0}
 
 
+# the host's waits in a graphed Toeplitz frame: `spoke_angles`' three scalar
+# uploads (the skip, PHI and 2 pi), each a pageable copy the host waits on
+FRAME_SYNCS = 3
+
+
+@pytest.mark.gpu
+def test_graphed_toeplitz_frame_waits_only_in_its_angles(dev):
+    """A whole-body Toeplitz frame after the first (its solve replayed from
+    the geometry's graphs) under torch's sync debug mode: every
+    synchronising call torch warns of is made inside the frame's
+    `tron.angles`, and there are FRAME_SYNCS of them."""
+    import contextlib
+    import warnings
+
+    from tron_tpu_torch import recon
+
+    solver = _fresh_cgnr()
+    cfg, d, _ = _cgnr_case(dev, (6, 204, 512), 37, "bfloat16", niter=10, toeplitz=True)
+    recon.reconstruct_frame(d, 19000, cfg)
+    torch.cuda.synchronize()
+    open_spans, syncs = [], []
+
+    @contextlib.contextmanager
+    def tracked(name):
+        open_spans.append(name)
+        try:
+            yield
+        finally:
+            open_spans.pop()
+
+    def show(message, *_):
+        if str(message).startswith("called a synchronizing CUDA operation"):
+            syncs.append(tuple(open_spans))
+
+    with pytest.MonkeyPatch.context() as mp, warnings.catch_warnings():
+        for module in (recon, solver):
+            mp.setattr(module, "span", tracked)
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            recon.reconstruct_frame(d, 19021, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert solver.CGNR_PROLOGUE_COUNTS == {"replayed": 1, "eager": 1}
+    assert all("tron.angles" in names for names in syncs), syncs
+    assert len(syncs) == FRAME_SYNCS, syncs
+
+
 @pytest.mark.gpu
 def test_sharded_cgnr_captures_nothing(dev):
     """A coil-sharded and a spoke-sharded solve (axes of one rank here) keep

@@ -140,6 +140,19 @@ def test_benchmark_readers_match_recorded_spans():
 
 
 CGNR = ("tron.cgnr", "tron.cgnr_rhs", "tron.cgnr_iter")
+HALF = ("tron.angles", "tron.combine")
+
+
+def _frame_half(by: dict) -> None:
+    """A CGNR frame's scheduler half: each `tron.frame` holds one
+    `tron.angles`, its `tron.cgnr` and one `tron.combine`, in that order
+    and apart."""
+    frames = by["tron.frame"]
+    assert len(by["tron.angles"]) == len(by["tron.cgnr"]) == len(by["tron.combine"]) \
+        == len(frames) == NZ
+    for (fs, fe), a, c, m in zip(frames, by["tron.angles"], by["tron.cgnr"],
+                                 by["tron.combine"]):
+        assert fs <= a[0] and a[1] <= c[0] and c[1] <= m[0] and m[1] <= fe, (a, c, m)
 
 
 def _cgnr_recon(niter: int):
@@ -151,14 +164,18 @@ def _cgnr_recon(niter: int):
 def test_cgnr_recon_records_its_solver_spans(niter):
     """A CGNR recon opens, inside each `tron.frame`, one `tron.cgnr` that
     holds its `tron.cgnr_rhs` and then ``niter`` `tron.cgnr_iter` spans, in
-    that order and apart; the direct adjoint (niter 0) opens none of them."""
+    that order and apart, between the frame's `tron.angles` and its
+    `tron.combine`; the direct adjoint (niter 0), whose angles are rows of
+    one table and whose combine runs in the frame's chain, opens none of
+    them."""
     out, spans = _profiled(_cgnr_recon(niter))
     assert out.shape == (NZ, 1, NRO // 2, NRO // 2)
     by = {name: [(s, e) for s, e, n in spans if n == name] for name in tracing.SPANS}
     if niter == 0:
-        assert not any(by[n] for n in CGNR)
+        assert not any(by[n] for n in CGNR + HALF)
         return
     assert [len(by[n]) for n in CGNR] == [NZ, NZ, NZ * niter]
+    _frame_half(by)
     for z, ((fs, fe), (cs, ce)) in enumerate(zip(by["tron.frame"], by["tron.cgnr"])):
         assert fs <= cs and ce <= fe
         steps = [by["tron.cgnr_rhs"][z]] + by["tron.cgnr_iter"][z * niter:(z + 1) * niter]
@@ -171,7 +188,7 @@ def test_cgnr_spans_off_change_no_bit():
     CGNR recon's images are bitwise those of a profiled run."""
     run = _cgnr_recon(10)
     want, spans = _profiled(run)
-    assert {n for _, _, n in spans} >= set(CGNR)
+    assert {n for _, _, n in spans} >= set(CGNR + HALF)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
         np.testing.assert_array_equal(run(), want)
@@ -197,10 +214,16 @@ def _toeplitz_recon(case: str):
 def test_toeplitz_psf_span_one_a_frame_inside_the_solve(case):
     """A Toeplitz recon opens one `tron.toeplitz_psf` a frame, inside that
     frame's `tron.cgnr` and before its right side; a recon on the pair's
-    normal operator, and the direct adjoint, open none."""
+    normal operator, and the direct adjoint, open none.  Both CGNR recons
+    open the frame's `tron.angles` before the solve and its `tron.combine`
+    after it; the direct adjoint opens neither."""
     out, spans = _profiled(_toeplitz_recon(case))
     assert out.shape == (NZ, 1, NRO // 2, NRO // 2)
     by = {name: [(s, e) for s, e, n in spans if n == name] for name in tracing.SPANS}
+    if case == "adjoint":
+        assert not any(by[n] for n in HALF)
+    else:
+        _frame_half(by)
     if case != "toeplitz":
         assert not by["tron.toeplitz_psf"]
         return
@@ -215,7 +238,7 @@ def test_toeplitz_spans_off_change_no_bit():
     images are bitwise those of a profiled run."""
     run = _toeplitz_recon("toeplitz")
     want, spans = _profiled(run)
-    assert "tron.toeplitz_psf" in {n for _, _, n in spans}
+    assert {n for _, _, n in spans} >= {"tron.toeplitz_psf", *HALF}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
         np.testing.assert_array_equal(run(), want)
@@ -225,3 +248,30 @@ def test_toeplitz_psf_span_is_listed():
     """The multiplier's build is a span of its own, after the capture's."""
     i = tracing.SPANS.index("tron.cgnr_graph")
     assert tracing.SPANS[i + 1] == "tron.toeplitz_psf"
+
+
+FORWARD_CASES = {"2d": {}, "koosh": {"koosh": True}}
+
+
+@pytest.mark.parametrize("case", list(FORWARD_CASES))
+def test_forward_opens_one_angles_span_a_call(case):
+    """A forward recon (2-D, and `-3`'s slices) builds its one angle set in
+    one `tron.angles`, before its frames, and no combine; with no profiler
+    its samples are bitwise those of a profiled run."""
+    x = np.random.default_rng(29).standard_normal((2, 2, 1, 32, 32, 3), np.float32)
+    imgs = (x[0] + 1j * x[1]).astype(np.complex64)
+    cfg = ReconConfig(golden_angle=True, data_undersamp=0.5, skip_angles=7,
+                      **FORWARD_CASES[case])
+
+    def run():
+        return recon.recon_radial2d(imgs, cfg, device="cpu")
+
+    want, spans = _profiled(run)
+    assert want.shape == (3, 2, 1, 32, 64)
+    names = [n for _, _, n in spans]
+    assert names.count("tron.angles") == 1 and "tron.combine" not in names
+    angles = next(iv for iv in spans if iv[2] == "tron.angles")
+    assert all(angles[1] <= s for s, _, n in spans if n == "tron.frame")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.profiler, "record_function", lambda name: pytest.fail(name))
+        np.testing.assert_array_equal(run(), want)

@@ -17,7 +17,8 @@ the coils they are given are one shard of a mesh's 'coil' axis: the coil
 combine and the CGNR inner products then finish over that axis
 (`parallel/mesh.py`).  Under a profiler the host driver's stages, each
 scheduler's sample prep, each frame and each capture are spans
-(`tracing.py`).
+(`tracing.py`), and so are the angles built per call by ``spoke_angles``
+and an eager frame's combine.
 
 An in-memory input goes to the device in the memory order it has
 (`_upload`) and is relaid there, so the host does no transpose;
@@ -185,7 +186,8 @@ def reconstruct_frame(
     """One frame: (nc, npe1work, nro) -> combined image (n, n).  ``skip`` is
     the frame's global profile offset (skip_angles + z*prof_slide)."""
     npe = data_window.shape[-2]
-    angles = spoke_angles(npe, cfg.scheme_for("adjoint"), skip, device=data_window.device)
+    with span("tron.angles"):
+        angles = spoke_angles(npe, cfg.scheme_for("adjoint"), skip, device=data_window.device)
     if cfg.niter > 0:
         # with sharded coils the CG inner products are global over the shards
         sharded = coil_axis is not None and coil_axis.size > 1
@@ -194,7 +196,8 @@ def reconstruct_frame(
         )
     else:
         coilimg = nufft_adjoint(data_window, angles, cfg)
-    return _combine(coilimg, cfg, coil_axis)
+    with span("tron.combine"):
+        return _combine(coilimg, cfg, coil_axis)
 
 
 def recon_frames(
@@ -776,7 +779,8 @@ def _forward_radial2d(indata: np.ndarray, cfg: ReconConfig, device) -> np.ndarra
     npe1 = int(cfg.data_undersamp * nro)
     # (nc, nt, nx, ny, nz) -> (nz, nc*nt, ny, nx), relaid on the device
     d = _relaid(_upload(indata, device), (4, 0, 1, 3, 2)).view(nz, nc * nt, ny, nx)
-    angles = spoke_angles(npe1, cfg.scheme_for("forward"), cfg.skip_angles, device=d.device)
+    with span("tron.angles"):
+        angles = spoke_angles(npe1, cfg.scheme_for("forward"), cfg.skip_angles, device=d.device)
     out = _map_frames(lambda z: nufft_forward(d[z], angles, cfg, nro=nro), nz)
     return out.cpu().numpy().reshape(nz, nc, nt, npe1, nro)
 
@@ -993,7 +997,9 @@ def _koosh_forward_device(
     repetition a channel of one ``nufft_forward`` call, then the centred,
     unnormalised FFT along kz.  stack: (nz, nc*nt, ny, nx) -> (npe2 = nz,
     nc*nt, npe1, nro)."""
-    angles = spoke_angles(npe1, cfg2.scheme_for("forward"), cfg2.skip_angles, device=stack.device)
+    with span("tron.angles"):
+        angles = spoke_angles(npe1, cfg2.scheme_for("forward"), cfg2.skip_angles,
+                              device=stack.device)
     data = _map_frames(lambda z: nufft_forward(stack[z], angles, cfg2, nro=nro), stack.shape[0])
     return torch.fft.fftshift(
         torch.fft.fft(torch.fft.ifftshift(data, dim=0), dim=0), dim=0

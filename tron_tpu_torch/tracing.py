@@ -16,6 +16,19 @@ the port records:
   (density compensation, the sample planes);
 - ``tron.frame``: one frame of a frame loop, its write into the output
   included;
+- ``tron.angles``: one call's spoke angles built on the device by
+  `trajectory.spoke_angles`, the host's waits on its scalar uploads
+  included: a frame's in `recon.reconstruct_frame` (the CGNR frame,
+  inside its ``tron.frame`` and before its ``tron.cgnr``), a forward's
+  one set in `recon._forward_radial2d` and `_koosh_forward_device`.  The
+  hoisted schedulers read rows of a table built inside ``tron.prep`` and
+  open none;
+- ``tron.combine``: one coil combine run eagerly by
+  `recon.reconstruct_frame`, inside its ``tron.frame`` and after its
+  ``tron.cgnr``; a combine inside a captured chain adds nothing at
+  replay and records none.  What is left of such a frame outside these
+  two spans and its ``tron.cgnr`` is the write into the output and, in
+  a graphed solve, its cache key and the angles' copy into its graph;
 - ``tron.frame_graph``: the capture of one frame's device chain as a CUDA
   graph (`recon.recon_frames`, once per geometry);
 - ``tron.incremental_step``: one telescoped frame's delta
@@ -65,6 +78,8 @@ SPANS = (
     "tron.upload",
     "tron.prep",
     "tron.frame",
+    "tron.angles",
+    "tron.combine",
     "tron.frame_graph",
     "tron.incremental_step",
     "tron.incremental_graph",
