@@ -651,7 +651,8 @@ def test_frame_graph_one_per_geometry(dev):
 def _eager_frames(monkeypatch, recon):
     """Every frame of the direct scheduler run by its eager call."""
     orig = recon._map_frames
-    monkeypatch.setattr(recon, "_map_frames", lambda one, nz, then=None: orig(one, nz))
+    monkeypatch.setattr(recon, "_map_frames",
+                        lambda one, nz, then=None, sink=None: orig(one, nz, sink=sink))
 
 
 @pytest.mark.gpu
@@ -1199,3 +1200,136 @@ def test_incremental_graph_replays_the_eager_scan(dev, monkeypatch):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(again, want)
     assert torch.equal(other, want_other)
+
+
+# -- the in-memory readback, block by block --------------------------------------
+
+
+def _frame_outputs(monkeypatch, recon):
+    """Keeps each device output the frame loops of `recon_radial2d` return."""
+    outs = []
+    for name in ("recon_frames", "recon_frames_incremental"):
+
+        def kept(*args, _fn=getattr(recon, name), **kw):
+            outs.append(_fn(*args, **kw))
+            return outs[-1]
+
+        monkeypatch.setattr(recon, name, kept)
+    return outs
+
+
+def _readback_cfg(mode):
+    from tron_tpu_torch.config import ReconConfig
+
+    kw = {"direct": {}, "incremental": {"incremental": True}, "cgnr": {"niter": 3}}[mode]
+    return ReconConfig(adjoint=True, golden_angle=True, data_undersamp=0.4, prof_slide=21,
+                       matmul_dtype="bfloat16", **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,nt", [(1, 1), (31, 1), (32, 1), (33, 1), (956, 1), (33, 2),
+                                   (956, 2)])
+@pytest.mark.parametrize("mode", ["direct", "incremental", "cgnr"])
+def test_block_readback_is_the_device_output(dev, monkeypatch, mode, nz, nt):
+    """Frames of 256 x 256 at whole-body widths (512 readouts, 204 spokes
+    sliding by 21; 2 coils): 32 frames a block.  Through the direct
+    scheduler, the telescoping scan and the CGNR pair, the host images of
+    `recon_radial2d` are bitwise ``out.cpu().numpy()`` of the device
+    outputs its frame loops returned, (nz, nt, n, n) C-ordered complex64;
+    ``blocks`` counts ceil(nz / 32) a repetition and ``whole`` none."""
+    from tron_tpu_torch import recon
+
+    cfg = _readback_cfg(mode)
+    x = _host_complex(nz + nt, (2, nt, 512, 204 + 21 * (nz - 1)))
+    assert cfg.frame_geometry(512, x.shape[-1]) == (204, 21, nz)
+    outs = _frame_outputs(monkeypatch, recon)
+    recon.reset_readback_counts()
+    got = recon.recon_radial2d(x, cfg, device=dev)
+    assert recon.READBACK_COUNTS == {"blocks": nt * -(-nz // 32), "whole": 0}
+    assert len(outs) == nt
+    want = np.stack([o.cpu().numpy() for o in outs], axis=1)
+    assert got.shape == want.shape == (nz, nt, 256, 256)
+    assert got.dtype == np.complex64 and got.flags.c_contiguous and got.flags.writeable
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.gpu
+def test_block_readback_returns_memory_of_its_own(dev):
+    """Two successive series share no memory with each other or with any
+    staging ring, and a write into the first leaves the second as it
+    was."""
+    from tron_tpu_torch import recon
+
+    cfg = _readback_cfg("direct")
+    x = _host_complex(5, (2, 1, 512, 204 + 21 * 99))
+    first = recon.recon_radial2d(x, cfg, device=dev)
+    second = recon.recon_radial2d(x, cfg, device=dev)
+    kept = second.copy()
+    assert not np.shares_memory(first, second)
+    rings = [ring for free in recon._rings._free.values() for ring in free]
+    assert rings
+    for ring in rings:
+        for buf in ring.pinned:
+            assert not np.shares_memory(first, buf.numpy())
+            assert not np.shares_memory(second, buf.numpy())
+    first[...] = 7
+    np.testing.assert_array_equal(second.view(np.uint32), kept.view(np.uint32))
+
+
+@pytest.mark.gpu
+def test_block_readbacks_in_four_threads(dev):
+    """Four threads read back device outputs of their own at once, each on
+    a compute stream of its own, three times each: every host result is
+    bitwise its output, and the pool holds at most four rings of the key."""
+    from tron_tpu_torch import recon
+
+    nz, frame = 70, (256, 256)
+
+    def series(seed):
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            out = torch.randn((nz,) + frame, generator=g, device=dev, dtype=torch.complex64)
+            with recon._BlockReadback(nz, 1) as readback:
+                sink = readback.sink(0)
+                for z0, z1 in recon.readback_blocks(nz, out[0].numel() * 8):
+                    sink(z0, z1, out)
+                got = readback.result()
+            return got, out.cpu().numpy()[:, None]
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        results = list(pool.map(series, range(12)))
+    for got, want in results:
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    key = (dev, (32,) + frame, torch.complex64)
+    assert 1 <= len(recon._rings._free[key]) <= 4
+
+
+@pytest.mark.gpu
+def test_block_readback_under_the_profiler(dev):
+    """A profiled direct series of 100 frames: one ``tron.readback`` span,
+    on the calling thread; the images come back as four copies to pinned
+    memory and none to pageable memory; every launch call is the calling
+    thread's (the worker launches nothing)."""
+    from tron_tpu_torch import recon
+
+    cfg = _readback_cfg("direct")
+    x = _host_complex(6, (2, 1, 512, 204 + 21 * 99))
+    recon.recon_radial2d(x, cfg, device=dev)  # the graph, cuFFT's plan, the ring
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = recon.recon_radial2d(x, cfg, device=dev)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() != cuda]
+    copies = [e.name() for e in events if e.device_type() == cuda and "DtoH" in e.name()]
+    spans = [e for e in host if e.name() == "tron.readback"]
+    frames = [e for e in host if e.name() == "tron.frame"]
+    assert len(spans) == 1 and len(frames) == 100
+    assert spans[0].start_thread_id() == frames[0].start_thread_id()
+    assert len(copies) == 4 and all("Pinned" in n for n in copies), copies
+    launches = [e for e in host if e.name() in ("cudaLaunchKernel", "cudaGraphLaunch")]
+    assert got.shape == (100, 1, 256, 256)
+    assert launches and {e.start_thread_id() for e in launches} == {spans[0].start_thread_id()}

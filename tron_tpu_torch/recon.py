@@ -35,11 +35,22 @@ the telescoping scheduler's frames gridded whole (``seeded``, one a scan)
 and advanced by a delta (``telescoped``), and the in-memory series that
 asked for it and took the direct path (``direct``);
 ``reset_incremental_counts()`` zeroes them.
+
+On the card an in-memory adjoint series is read back block by block while
+its frame loop runs (`_BlockReadback`): each block of ~16 MiB of frames
+(`readback_blocks`) is copied on a copy stream into a pinned staging ring
+once the loop has enqueued it, and a worker thread lands it in the host
+result.  ``READBACK_COUNTS`` counts the blocks read back so (``blocks``)
+and the series read back in one copy (``whole``: the CPU, and
+``half_readback``); ``reset_readback_counts()`` zeroes them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import functools
+import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -76,6 +87,10 @@ reset_incremental_graph_counts = _incremental_graphs.reset_counts
 
 UPLOAD_COUNTS = {"as_is": 0, "host_copy": 0}
 INCREMENTAL_COUNTS = {"seeded": 0, "telescoped": 0, "direct": 0}
+READBACK_COUNTS = {"blocks": 0, "whole": 0}
+
+READBACK_BLOCK_BYTES = 16 << 20  # a block of the in-memory readback, at least one frame
+READBACK_RING_DEPTH = 3  # pinned staging buffers a readback cycles through
 
 
 def reset_upload_counts() -> None:
@@ -86,6 +101,11 @@ def reset_upload_counts() -> None:
 def reset_incremental_counts() -> None:
     for key in INCREMENTAL_COUNTS:
         INCREMENTAL_COUNTS[key] = 0
+
+
+def reset_readback_counts() -> None:
+    for key in READBACK_COUNTS:
+        READBACK_COUNTS[key] = 0
 
 
 def _upload(arr: np.ndarray, device) -> torch.Tensor:
@@ -140,6 +160,117 @@ def _from_half_planes(planes: np.ndarray) -> np.ndarray:
     )
 
 
+class _RingPool:
+    """The in-memory readback's staging rings, cached for the process by a
+    key (device, block shape, dtype), each held by one call at a time: a
+    call takes a free ring of its key, or a new one, and gives it back when
+    its copies are landed, so two threads never share a slot."""
+
+    def __init__(self):
+        self._free = {}
+        self._lock = threading.Lock()
+
+    def take(self, key, make):
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                return free.pop()
+        return make()
+
+    def give(self, key, ring) -> None:
+        with self._lock:
+            self._free.setdefault(key, []).append(ring)
+
+
+class _Ring:
+    """``READBACK_RING_DEPTH`` pinned host buffers of one block each and the
+    copy stream that fills them."""
+
+    def __init__(self, device: torch.device, shape: tuple[int, ...], dtype: torch.dtype):
+        self.stream = torch.cuda.Stream(device)
+        self.pinned = [torch.empty(shape, dtype=dtype, pin_memory=True)
+                       for _ in range(READBACK_RING_DEPTH)]
+
+
+_rings = _RingPool()
+
+
+def _land(done: torch.cuda.Event, stage: torch.Tensor, dest: torch.Tensor) -> None:
+    """The readback worker's part of a block: once its copy to the pinned
+    slot is done, the slot into its place in the host result."""
+    done.synchronize()
+    dest.copy_(stage)
+
+
+class _BlockReadback:
+    """An in-memory adjoint series' readback from the card while its frame
+    loops run.  Repetition t's loop hands each block of its frames to
+    ``sink(t)`` once their writes are enqueued; the block is copied on the
+    ring's copy stream, behind the compute stream's work so far, into the
+    next pinned slot, and one worker thread lands the slot in the host
+    result (nz, nt, *frame) after the copy.  A slot is refilled only once
+    the worker has landed its last block.  The host result is plain
+    pageable memory, filled with the device output's bytes; the ring (at
+    the first block, from `_rings`) and the device outputs are held until
+    ``close()`` has waited for every copy."""
+
+    def __init__(self, nz: int, nt: int):
+        self.nz, self.nt = nz, nt
+        self.host = self.ring = self.key = None
+        self.outs = {}
+        self.landed = [None] * READBACK_RING_DEPTH  # each slot's last block, landing
+        self.blocks = 0
+        self.worker = ThreadPoolExecutor(max_workers=1)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def sink(self, t: int):
+        """The frame loop's sink for repetition t."""
+        return functools.partial(self._block, t)
+
+    def _block(self, t: int, z0: int, z1: int, out: torch.Tensor) -> None:
+        if self.ring is None:
+            frame = tuple(out.shape[1:])
+            # a slot holds the plan's first block, its longest
+            rows = readback_blocks(self.nz, out[0].numel() * out.element_size())[0][1]
+            self.key = (out.device, (rows,) + frame, out.dtype)
+            self.ring = _rings.take(self.key, lambda: _Ring(*self.key))
+            self.host = torch.empty((self.nz, self.nt) + frame, dtype=out.dtype)
+        self.outs[t] = out
+        k = self.blocks % READBACK_RING_DEPTH
+        if self.landed[k] is not None:
+            self.landed[k].result()
+        stage = self.ring.pinned[k][: z1 - z0]
+        copier = self.ring.stream
+        copier.wait_stream(torch.cuda.current_stream(out.device))
+        with torch.cuda.stream(copier):
+            stage.copy_(out[z0:z1], non_blocking=True)
+        done = copier.record_event()
+        self.landed[k] = self.worker.submit(_land, done, stage, self.host[z0:z1, t])
+        self.blocks += 1
+        READBACK_COUNTS["blocks"] += 1
+
+    def result(self) -> np.ndarray:
+        """The host images, (nz, nt, *frame), once every block is landed."""
+        for fut in self.landed:
+            if fut is not None:
+                fut.result()
+        return self.host.numpy()
+
+    def close(self) -> None:
+        concurrent.futures.wait([f for f in self.landed if f is not None])
+        self.worker.shutdown()
+        if self.ring is not None:
+            self.ring.stream.synchronize()  # a copy left unlanded by a raise
+            _rings.give(self.key, self.ring)
+            self.ring = None
+        self.outs.clear()
+
+
 def _combine(
     coilimg: torch.Tensor, cfg: ReconConfig, coil_axis: MeshAxis | None = None
 ) -> torch.Tensor:
@@ -163,21 +294,51 @@ def _combine(
     raise ValueError(f"coil_combine must be 'sos', 'walsh' or 'none', got {cfg.coil_combine!r}")
 
 
-def _map_frames(one, nz: int, then=None) -> torch.Tensor:
+def _map_frames(one, nz: int, then=None, sink=None) -> torch.Tensor:
     """Frames 0..nz-1 in order, written into one preallocated output.  Frame
     0 runs ``one`` and sizes the output; with ``then``, frames 1 on run the
     function that ``then()`` returns after frame 0 (the direct scheduler's
-    replay of its graph)."""
+    replay of its graph).  With ``sink``, ``sink(z0, z1, out)`` is called,
+    outside the frames' spans, once the writes of frames [z0, z1) of each
+    readback block (`readback_blocks`) are enqueued: the in-memory
+    readback's (`_BlockReadback`)."""
     with span("tron.frame"):
         first = one(0)
         out = first.new_empty((nz,) + tuple(first.shape))
         out[0] = first
+    written = _block_sink(sink, out)
+    written(0)
     if then is not None and nz > 1:
         one = then()
     for z in range(1, nz):
         with span("tron.frame"):
             out[z] = one(z)
+        written(z)
     return out
+
+
+def readback_blocks(nz: int, frame_bytes: int) -> list[tuple[int, int]]:
+    """The in-memory readback's blocks of frames, (z0, z1) in order: as many
+    frames as fit in ``READBACK_BLOCK_BYTES``, or one frame that does not,
+    the tail block shorter, so [0, nz) is covered once."""
+    bf = max(1, READBACK_BLOCK_BYTES // frame_bytes)
+    return [(z0, min(z0 + bf, nz)) for z0 in range(0, nz, bf)]
+
+
+def _block_sink(sink, out: torch.Tensor):
+    """``written(z)`` for a frame loop that fills ``out`` in order: once
+    frame z, the last of a readback block, is written, it hands the block
+    to ``sink``.  Without a sink it does nothing."""
+    if sink is None:
+        return lambda z: None
+    frame_bytes = out[0].numel() * out.element_size()
+    last = {z1 - 1: z0 for z0, z1 in readback_blocks(out.shape[0], frame_bytes)}
+
+    def written(z):
+        if z in last:
+            sink(last[z], z + 1, out)
+
+    return written
 
 
 def reconstruct_frame(
@@ -208,10 +369,12 @@ def recon_frames(
     nz: int,
     skip0: int = 0,
     coil_axis: MeshAxis | None = None,
+    sink=None,
 ) -> torch.Tensor:
     """All frames on data's device. data: (nc, npe1, nro) -> (nz, n, n).
     ``skip0`` is the global profile offset of data[..., 0, :]; ``coil_axis``
-    the mesh axis that ``data``'s coils are one shard of, if any."""
+    the mesh axis that ``data``'s coils are one shard of, if any; ``sink``
+    the frame loop's (`_map_frames`)."""
     nro = data.shape[-1]
     if cfg.niter == 0 and planes_path_ok(cfg):
         # hoist the once-per-acquisition half of the gridder's sample prep
@@ -246,7 +409,7 @@ def recon_frames(
                 return lambda z: chain.replay(window(z), angles[z])
 
             FRAME_GRAPH_COUNTS["eager"] += 1
-            return _map_frames(one, nz, replay)
+            return _map_frames(one, nz, replay, sink=sink)
 
     else:
 
@@ -256,7 +419,9 @@ def recon_frames(
             return reconstruct_frame(win, cfg.skip_angles + skip0 + pe0, cfg, coil_axis)
 
     FRAME_GRAPH_COUNTS["eager"] += nz
-    return _map_frames(one, nz)
+    if sink is None:  # nothing read back: the loop's plain call
+        return _map_frames(one, nz)
+    return _map_frames(one, nz, sink=sink)
 
 
 def _capture_frame(frame, win: torch.Tensor, ang: torch.Tensor) -> graphs.Chain:
@@ -293,6 +458,7 @@ def recon_frames_incremental(
     nz: int,
     skip0: int = 0,
     coil_axis: MeshAxis | None = None,
+    sink=None,
 ) -> torch.Tensor:
     """Telescoping sliding-window recon.  Same contract as recon_frames.
 
@@ -361,7 +527,7 @@ def recon_frames_incremental(
 
     return incremental_scan(
         window, angles_of, gridw, frame_image, npe1work, prof_slide, nz,
-        spoke_axis=spoke_axis, graph_key=graph_key,
+        spoke_axis=spoke_axis, graph_key=graph_key, sink=sink,
     )
 
 
@@ -378,7 +544,7 @@ def delta_angle_rows(spokes: torch.Tensor, work: int, slide: int, nsteps: int) -
 def incremental_scan(
     window, angles_of, gridw, frame_image,
     work: int, slide: int, nframes: int,
-    z0: int = 0, spoke_axis: int = 0, graph_key=None,
+    z0: int = 0, spoke_axis: int = 0, graph_key=None, sink=None,
 ) -> torch.Tensor:
     """The telescoping core: frame_image outputs for frames z0 ..
     z0 + nframes - 1.
@@ -403,6 +569,8 @@ def incremental_scan(
         img0 = frame_image(kg)
         out = img0.new_empty((nframes,) + tuple(img0.shape))
         out[0] = img0
+    written = _block_sink(sink, out)
+    written(0)
     INCREMENTAL_COUNTS["seeded"] += 1
     # every gridding call scales by 1/(nxos * npe_of_call); deltas must carry
     # the frame scale 1/(nxos * work) instead
@@ -431,14 +599,15 @@ def incremental_scan(
                 with span("tron.incremental_step"):
                     advance(kg, *inputs(i))
                 out[i] = frame_image(kg)
-                continue
-            if chain is None:
-                chain = _incremental_graphs.get(graph_key,
-                                                lambda: _capture_step(step, inputs(i), kg))
-                chain.static[-1].copy_(kg)
-            with span("tron.incremental_step"):
-                chain.replay(*inputs(i))
-            out[i] = chain.out
+            else:
+                if chain is None:
+                    chain = _incremental_graphs.get(graph_key,
+                                                    lambda: _capture_step(step, inputs(i), kg))
+                    chain.static[-1].copy_(kg)
+                with span("tron.incremental_step"):
+                    chain.replay(*inputs(i))
+                out[i] = chain.out
+        written(i)
     INCREMENTAL_COUNTS["telescoped"] += nframes - 1
     INCREMENTAL_GRAPH_COUNTS["eager"] += eager
     INCREMENTAL_GRAPH_COUNTS["replayed"] += nframes - eager
@@ -477,7 +646,15 @@ def recon_radial2d(
     a stack of stars; see ``_recon_stack_of_stars`` for its shapes.
 
     ``half_readback`` casts adjoint images to float16 on the device before
-    the transfer."""
+    the transfer.
+
+    The adjoint's images come back from the card block by block while the
+    frame loops run (`_BlockReadback`: a pinned staging ring on a copy
+    stream, a worker thread that lands each block in a pageable host
+    array); ``tron.readback`` spans, on the calling thread, the wait for
+    the blocks still in flight after the last frame.  On the CPU and with
+    ``half_readback`` the images come back in one copy after the last
+    frame, inside ``tron.readback``."""
     if cfg.koosh:
         return _recon_stack_of_stars(indata, cfg, half_readback, device)
     if not cfg.adjoint:
@@ -500,12 +677,18 @@ def recon_radial2d(
     if cfg.incremental and not incremental:
         INCREMENTAL_COUNTS["direct"] += nt
     frames_fn = recon_frames_incremental if incremental else recon_frames
+    d = d.reshape(nt, nc, npe1, nro)  # coils combined per repetition
+    if d.is_cuda and not half_readback:
+        with _BlockReadback(nz, nt) as readback:
+            for t in range(nt):
+                frames_fn(d[t], cfg, work, slide, nz, sink=readback.sink(t))
+            with span("tron.readback"):
+                return readback.result()
+    READBACK_COUNTS["whole"] += 1
     if nt > 1:
-        # combine coils per repetition
-        d = d.reshape(nt, nc, npe1, nro)
         out = torch.stack([frames_fn(d[t], cfg, work, slide, nz) for t in range(nt)], dim=1)
         return _fetch_host(out, half_readback)
-    out = frames_fn(d, cfg, work, slide, nz)  # (nz, n, n)
+    out = frames_fn(d[0], cfg, work, slide, nz)  # (nz, n, n)
     return _fetch_host(out, half_readback)[:, None]
 
 

@@ -44,8 +44,12 @@ the port records:
 - ``tron.incremental_graph``: the capture of the telescoped frame's
   device chain as a CUDA graph (`recon.incremental_scan`, once per
   geometry);
-- ``tron.readback``: the images' copy to the host, the queue's drain
-  included;
+- ``tron.readback``: the images' way back to the host after the last
+  frame, on the calling thread.  On the card an in-memory adjoint's
+  blocks are copied while the frame loops run (`recon._BlockReadback`),
+  so it spans the wait for the blocks still in flight, the queue's drain
+  included; on the CPU and with ``half_readback`` the images are copied
+  whole inside it, the queue's drain included;
 - ``tron.cgnr``: one frame's CGNR solve (`solver.cgnr_radial2d`), inside
   its ``tron.frame``; ``tron.toeplitz_psf``: one build of a solve's
   Toeplitz multiplier (`solver.toeplitz_fourier_kernel`: the weights
